@@ -13,17 +13,28 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    bitwise) and kernel / plain times from CUDA events;
 4. a narrow model (head dim 128, two query heads per KV head) transcribed on
    the card and on the CPU (plain versions): logits and greedy tokens compared;
-5. the slice: a 0.6B-width Q8_0 GGUF with random weights from a seed, served
-   by the port's engine server through the wire loop on in-memory pipes
-   (init, a 2 s and a 12 s speech-like request, silence, stats, exit), with
-   the kernels' launch counts taken over those requests;
+5. a 0.6B-width Q8_0 GGUF with random weights from a seed, served by the
+   port's engine server through the wire loop on in-memory pipes, driven
+   along three paths, each with the kernels' launch counts set to 0 just
+   before it and read just after:
+   - slice: a 2 s and a 12 s speech-like request and silence, one at a time;
+   - batch: four concurrent requests of 2-3 s, then four of 4-12 s, written
+     at once so that the ones queued behind the first coalesce into one
+     batched prefill and decode; both new attention kernels must launch
+     here. Then, on the model and counted apart (``batch-model``),
+     ``transcribe_batch`` against per-stream ``transcribe`` on clips of one
+     bucket length, and decode ms/step and aggregate tokens/s at
+     B = 1, 2, 4, 8;
+   - longform: one 156 s recording with no options (VAD over all of it,
+     windows of at most 28 s, one batched decode);
 6. ``engine_cli serve`` in a subprocess: init, one transcribe, exit.
 
 Then the ``nvidia-smi`` line, a JSON line with one entry per kernel and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero without that line. No JAX is imported: the port reuses only the
 JAX-free modules of ``light_whisper_tpu`` (GGUF, config, tokenizer, wire
-server, VAD segmenter, speech-like test audio).
+server, scheduler, long-form windowing, VAD segmenter, speech-like test
+audio).
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 5
 CARD_TIMEOUT_S = 60
+TIE_BAND = 1e-3  # top-2 logit gap within which a greedy flip is a tie (docs/SERVING.md)
 
 
 class PhaseError(RuntimeError):
@@ -196,15 +208,18 @@ def phase_kernels(torch):
 
     # -- stacked-fused at decode (T=1) ---------------------------------------
     eps = 1e-6
-    for case, name, with_norm, with_res in (("qkv +norm", "qkv", True, False),
-                                            ("o +residual", "o", False, True),
-                                            ("down +norm +residual", "down", True, True)):
+    # T=1: one stream; T=8: the batched decode at B=8 (48 KB of staged x at K=3072)
+    for T, case, name, with_norm, with_res in ((1, "qkv +norm", "qkv", True, False),
+                                               (1, "o +residual", "o", False, True),
+                                               (1, "down +norm +residual", "down", True, True),
+                                               (8, "qkv +norm", "qkv", True, False),
+                                               (8, "down +residual", "down", False, True)):
         N, K = proj[name]
         qw, sw = stacks[name]
-        x = randn(1, K).to(torch.bfloat16)
+        x = randn(T, K).to(torch.bfloat16)
         norm_w = (1.0 + randn(K, scale=0.1)) if with_norm else None
-        res = randn(1, N).to(torch.bfloat16) if with_res else None
-        check("q8_matmul_stacked_fused", f"{case} T=1 {N}x{K}",
+        res = randn(T, N).to(torch.bfloat16) if with_res else None
+        check("q8_matmul_stacked_fused", f"{case} T={T} {N}x{K}",
               lambda i: q8.q8_matmul_stacked_fused(x, qw, sw, i % L, norm_w=norm_w, eps=eps, residual=res),
               lambda i: q8.q8_matmul_fused_plain(x, qw[i % L], sw[i % L], norm_w, eps, res),
               calls=L, tol_rel=1e-3 if with_norm else 0.0,
@@ -244,6 +259,30 @@ def phase_kernels(torch):
                   lambda i: da.decode_attention(qx, kc, vc, start, i % L),
                   lambda i: da.decode_attention_plain(qx, kc, vc, start, i % L),
                   calls=L, tol_abs=5e-3)  # bf16 rounding of p
+    # one layer's [Hkv, C, hd] block: the batched prefill's per-stream attention
+    for T, start in ((1, 511), (64, 0)):
+        qx = randn(T, Hq, hd, scale=3.0)
+        check("decode_attention_unstacked", f"T={T} start={start} C={C}",
+              lambda i: da.decode_attention_unstacked(qx, kc[i % L], vc[i % L], start),
+              lambda i: da.attention_plain(qx, kc[i % L], vc[i % L], start),
+              calls=L, tol_abs=5e-3)
+    del kc, vc
+    # per-stream caches, junk past each stream's position (padded prompt tails)
+    for B in (2, 8):
+        for Cb in (1024, 2048):
+            positions = [37, Cb - 1] if B == 2 else [0, 37, 511, Cb - 1, 3, 200, 700, Cb // 2]
+            kb = randn(B, L, Hkv, Cb, hd).to(torch.bfloat16)
+            vb = randn(B, L, Hkv, Cb, hd).to(torch.bfloat16)
+            for b, p in enumerate(positions):
+                kb[b, :, :, p + 1:] = 1e4
+                vb[b, :, :, p + 1:] = -1e4
+            pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+            qx = randn(B, Hq, hd, scale=3.0)
+            check("decode_attention_batched", f"B={B} C={Cb} pos={positions}",
+                  lambda i: da.decode_attention_batched(qx, kb, vb, pos, i % L, positions),
+                  lambda i: da.decode_attention_batched_plain(qx, kb, vb, pos, i % L),
+                  calls=L, tol_abs=5e-3)
+            del kb, vb
     n_cases = sum(len(v) for v in results.values())
     say(f"phase kernels: ok {n_cases} cases")
     return results
@@ -373,9 +412,12 @@ class PipeClient:
         require(bool(line), "engine server closed its output")
         return json.loads(line)
 
-    def call(self, command: dict) -> dict:
-        self._to_server.write(json.dumps(command) + "\n")
+    def send(self, *commands: dict) -> None:
+        self._to_server.write("".join(json.dumps(c) + "\n" for c in commands))
         self._to_server.flush()
+
+    def call(self, command: dict) -> dict:
+        self.send(command)
         return self.read()
 
     def close(self):
@@ -399,57 +441,77 @@ def _flagship_path():
     return path, cfg
 
 
-def phase_slice(torch, counters):
-    import numpy as np
+def _transcribe_cmd(rid: int, audio) -> dict:
+    return {"action": "transcribe", "request_id": rid, "audio_base64": _pcm_b64(audio),
+            "audio_format": "pcm_s16le", "sample_rate": 16000}
 
-    from light_whisper_tpu.eval.speechlike import speechlike
+
+def _median_ms(seconds) -> float:
+    return sorted(seconds)[len(seconds) // 2] * 1000 if seconds else float("nan")
+
+
+class Launches:
+    """The kernels' launch counters, set to 0 just before a path and read just
+    after it (``synchronize`` first, so that a fault surfaces in its path)."""
+
+    def __init__(self, torch, counters):
+        self.torch, self.counters, self.by_path = torch, counters, {}
+
+    def start(self):
+        for counter in self.counters:
+            for key in counter:
+                counter[key] = 0
+
+    def read(self, path: str, required) -> dict:
+        self.torch.cuda.synchronize()
+        got = {k: v for c in self.counters for k, v in c.items()}
+        self.by_path[path] = got
+        say(f"  launches on the {path} path: {got}")
+        for name in required:
+            require(got[name] > 0, f"kernel {name} was not launched on the {path} path")
+        return got
+
+
+def start_server():
     from light_whisper_tpu_torch.runtime.qwen3_server import Qwen3EngineServer
 
     os.environ["LIGHT_WHISPER_DISABLE_SESSION_REUSE"] = "1"
     path, cfg = _flagship_path()
     engine = Qwen3EngineServer(engine="qwen3-asr-0.6b", device="cuda", model_path=path)
     client = PipeClient(engine.hooks())
-    try:
-        init = client.read()
-        require(init.get("success") is True, f"init failed: {init}")
-        require(init.get("backend") == "cuda", f"init backend {init.get('backend')!r}")
-        say(f"  init: {init.get('message')} phases={engine._init_timings}")
+    init = client.read()
+    require(init.get("success") is True, f"init failed: {init}")
+    require(init.get("backend") == "cuda", f"init backend {init.get('backend')!r}")
+    say(f"  init: {init.get('message')} phases={engine._init_timings}")
+    return engine, client, path, cfg
 
-        for reset in counters:
-            for key in reset:
-                reset[key] = 0
-        requests = (("speech 2 s", speechlike(2.0, seed=SEED), True),
-                    ("speech 12 s", speechlike(12.0, seed=SEED + 1), True),
-                    ("silence 3 s", np.zeros(3 * 16000, np.float32), False))
-        step_ms = None
-        for rid, (name, audio, speech) in enumerate(requests, start=1):
-            reply = client.call({"action": "transcribe", "request_id": rid,
-                                 "audio_base64": _pcm_b64(audio), "audio_format": "pcm_s16le",
-                                 "sample_rate": 16000})
-            require(reply.get("success") is True, f"{name}: {reply}")
-            require(reply.get("backend") == "cuda", f"{name}: backend {reply.get('backend')!r}")
-            if speech:
-                require(reply.get("vad_segments", 0) >= 1, f"{name}: no VAD segment: {reply}")
-                steps = engine.model.last_decode_step_s
-                med = sorted(steps)[len(steps) // 2] * 1000 if steps else float("nan")
-                if name == "speech 12 s":
-                    step_ms = med
-                say(f"  {name}: inference_ms={reply['inference_ms']} vad_ms={reply['vad_ms']} "
-                    f"decode_steps={len(steps)} median_step_ms={med:.3f} text_chars={len(reply['text'])}")
-            else:
-                require(reply.get("vad_segments") == 0, f"{name}: expected no VAD segment: {reply}")
-                say(f"  {name}: vad_segments=0 vad_ms={reply['vad_ms']}")
-        torch.cuda.synchronize()
-        launches = {k: v for c in counters for k, v in c.items()}
-        stats = client.call({"action": "stats", "request_id": 9})
-        require(stats.get("success") is True, f"stats: {stats}")
-        bye = client.call({"action": "exit", "request_id": 10})
-        require(bye.get("success") is True, f"exit: {bye}")
-    finally:
-        client.close()
-    say(f"  launches during the requests: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+
+def phase_slice(torch, engine, client, cfg, launches: Launches):
+    import numpy as np
+
+    from light_whisper_tpu.eval.speechlike import speechlike
+
+    launches.start()
+    requests = (("speech 2 s", speechlike(2.0, seed=SEED), True),
+                ("speech 12 s", speechlike(12.0, seed=SEED + 1), True),
+                ("silence 3 s", np.zeros(3 * 16000, np.float32), False))
+    step_ms = None
+    for rid, (name, audio, speech) in enumerate(requests, start=1):
+        reply = client.call(_transcribe_cmd(rid, audio))
+        require(reply.get("success") is True, f"{name}: {reply}")
+        require(reply.get("backend") == "cuda", f"{name}: backend {reply.get('backend')!r}")
+        if speech:
+            require(reply.get("vad_segments", 0) >= 1, f"{name}: no VAD segment: {reply}")
+            steps = engine.model.last_decode_step_s
+            med = _median_ms(steps)
+            if name == "speech 12 s":
+                step_ms = med
+            say(f"  {name}: inference_ms={reply['inference_ms']} vad_ms={reply['vad_ms']} "
+                f"decode_steps={len(steps)} median_step_ms={med:.3f} text_chars={len(reply['text'])}")
+        else:
+            require(reply.get("vad_segments") == 0, f"{name}: expected no VAD segment: {reply}")
+            say(f"  {name}: vad_segments=0 vad_ms={reply['vad_ms']}")
+    launches.read("slice", [name for name, *_ in KERNELS[:4]])
 
     # the served model's prefill logits are finite and of the padded vocab width
     logits = engine.model.teacher_forced_logits(speechlike(2.0, seed=SEED), [1, 2])
@@ -457,43 +519,155 @@ def phase_slice(torch, counters):
     require(logits[0].shape[-1] == 152_576, f"logits width {logits[0].shape[-1]}")
     say(f"phase slice: ok (0.6B width, {cfg.decoder.block_count} decoder layers, "
         f"{cfg.audio.block_count} encoder layers, decode {step_ms:.3f} ms/step median on 12 s)")
-    return launches, path, engine.model
+
+
+def _coalesced_round(client, name: str, clips, first_rid: int) -> None:
+    """Write every request line at once; the first occupies the device for
+    seconds, the others queue behind it and coalesce into one batch."""
+    before = client.call({"action": "stats", "request_id": first_rid})["stats"]
+    rids = list(range(first_rid + 1, first_rid + 1 + len(clips)))
+    client.send(*(_transcribe_cmd(rid, clip) for rid, clip in zip(rids, clips)))
+    replies = {}
+    for _ in rids:
+        reply = client.read()
+        replies[reply.get("request_id")] = reply
+    for rid in rids:
+        reply = replies.get(rid, {})
+        require(reply.get("success") is True and reply.get("vad_segments", 0) >= 1, f"{name} {rid}: {reply}")
+    after = client.call({"action": "stats", "request_id": rids[-1] + 1})["stats"]
+    dispatches = after["batch_dispatches"] - before["batch_dispatches"]
+    batched = after["batched_requests"] - before["batched_requests"]
+    say(f"  {name}: {len(clips)} concurrent requests -> batch_dispatches +{dispatches}, batched_requests "
+        f"+{batched}; inference_ms {[replies[r]['inference_ms'] for r in rids]}")
+    require(dispatches >= 1 and batched >= 2, f"{name}: requests did not coalesce ({dispatches}, {batched})")
+
+
+def _first_divergence(model, clip, solo, batched) -> str:
+    """Empty if the token lists agree; else where they part and the per-stream
+    top-2 gap there, failing outside the 1e-3 tie band."""
+    if solo == batched:
+        return ""
+    step = next((i for i, (a, b) in enumerate(zip(solo, batched)) if a != b), min(len(solo), len(batched)))
+    logits = model.teacher_forced_logits(clip, solo[:step])[step][: model.config.decoder.vocab_size]
+    top2 = sorted(logits.tolist())[-2:]
+    gap = top2[1] - top2[0]
+    require(gap <= TIE_BAND, f"batched tokens part from per-stream at step {step} with top-2 gap {gap:.3g}")
+    return f"parts at step {step}, top-2 gap {gap:.3g} (tie)"
+
+
+def phase_batch(torch, engine, client, launches: Launches):
+    from light_whisper_tpu.eval.speechlike import speechlike
+
+    model = engine.model
+    launches.start()
+    # prompts of at most 64 rows (clips up to 3 s) reach the unstacked
+    # attention kernel in the batched prefill; longer clips the plain softmax
+    _coalesced_round(client, "round 2-3 s", [speechlike(s, seed=SEED + 30 + i)
+                                              for i, s in enumerate((2.0, 2.5, 3.0, 2.2))], 100)
+    _coalesced_round(client, "round 4-12 s", [speechlike(s, seed=SEED + 40 + i)
+                                               for i, s in enumerate((12.0, 4.0, 6.5, 9.0))], 200)
+    # the wire rounds alone must reach both new kernels and the Q8 forms
+    launches.read("batch", [name for name, *_ in KERNELS if name != "decode_attention"])
+
+    # model-level checks and the B sweep, counted apart from the wire path
+    launches.start()
+    keep = model.max_new_tokens
+    try:
+        model.max_new_tokens = 48
+        clips = [speechlike(3.0, seed=SEED + 50 + i) for i in range(4)]  # one bucket: exactly 3.0 s
+        batched = model.transcribe_batch(clips)
+        for i, clip in enumerate(clips):
+            solo = model.transcribe(clip).tokens
+            note = _first_divergence(model, clip, solo, batched[i].tokens)
+            say(f"  transcribe_batch vs transcribe, clip {i}: {len(solo)} tokens, "
+                f"{note or 'identical'}")
+        model.max_new_tokens = 64
+        rates = {}
+        for B in (1, 2, 4, 8):
+            results = model.transcribe_batch([speechlike(3.0, seed=SEED + 60 + i) for i in range(B)])
+            torch.cuda.synchronize()
+            require(all(len(r.tokens) > 0 for r in results), f"B={B}: empty decode")
+            ms = _median_ms(model.last_decode_step_s)
+            rates[B] = (ms, B * 1000.0 / ms)
+            say(f"  decode B={B} ({'transcribe' if B == 1 else 'transcribe_batch'}): {ms:.3f} ms/step median "
+                f"over {len(model.last_decode_step_s)} steps, {rates[B][1]:.1f} tokens/s aggregate")
+    finally:
+        model.max_new_tokens = keep
+    launches.read("batch-model", ["decode_attention_unstacked", "decode_attention_batched"])
+    say("phase batch: ok " + json.dumps({f"B={B}": {"ms_per_step": ms, "tokens_per_s": tps}
+                                          for B, (ms, tps) in rates.items()}))
+
+
+def phase_longform(torch, client, launches: Launches):
+    import numpy as np
+
+    from light_whisper_tpu.eval.speechlike import speechlike
+    from light_whisper_tpu.serving.longform import DEFAULT_MAX_WINDOW_SECONDS, DEFAULT_PAD_SECONDS
+
+    pause = np.zeros(int(0.8 * 16000), np.float32)
+    pieces = []
+    for i, seconds in enumerate((20.0, 25.0, 18.0, 22.0, 24.0, 19.0, 23.0)):
+        pieces += [speechlike(seconds, seed=SEED + 70 + i), pause]
+    recording = np.concatenate(pieces)
+    launches.start()
+    t0 = time.perf_counter()
+    reply = client.call(_transcribe_cmd(300, recording))
+    wall = time.perf_counter() - t0
+    require(reply.get("success") is True, f"long-form: {reply}")
+    windows = reply.get("long_form_window_seconds") or []
+    say(f"  {len(recording) / 16000:.1f} s recording: long_form={reply.get('long_form')} "
+        f"vad_segments={reply.get('vad_segments')} windows={windows} vad_ms={reply.get('vad_ms')} "
+        f"long_form_asr_ms={reply.get('long_form_asr_ms')} inference_ms={reply.get('inference_ms')} "
+        f"wall {wall:.3f} s text_chars={len(reply.get('text', ''))}")
+    require(reply.get("long_form") is True, "a 156 s request did not take the long-form path")
+    require(reply.get("vad_segments", 0) >= 2, f"long-form windows: {reply.get('vad_segments')}")
+    # a window holds at most the 28 s budget of speech, plus the 0.12 s
+    # acoustic pad at each true segment edge (serving/longform.plan_windows)
+    bound = DEFAULT_MAX_WINDOW_SECONDS + 2 * DEFAULT_PAD_SECONDS
+    require(all(0 < w <= bound for w in windows), f"window over {bound} s: {windows}")
+    launches.read("longform", ["decode_attention_batched", "q8_matmul", "q8_matmul_stacked",
+                               "q8_matmul_stacked_fused"])
+    say(f"phase longform: ok ({len(windows)} windows, max {max(windows)} s)")
 
 
 def phase_profile(torch, model, out_dir: str, steps: int = 32):
-    """torch.profiler over one 12 s transcribe cut to ``steps`` decode steps:
-    device time by kernel, and the device's busy share of the wall."""
+    """torch.profiler over a 12 s transcribe and a B = 8 ``transcribe_batch`` of
+    3 s clips, each cut to ``steps`` decode steps: device time by kernel, and
+    the device's busy share of the wall."""
     from light_whisper_tpu.eval.speechlike import speechlike
 
-    audio = speechlike(12.0, seed=SEED + 1)
+    workloads = (("12s", "12 s transcribe", lambda: model.transcribe(speechlike(12.0, seed=SEED + 1))),
+                 ("batch8", "B=8 transcribe_batch of 3 s clips",
+                  lambda: model.transcribe_batch([speechlike(3.0, seed=SEED + 60 + i) for i in range(8)])))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     keep = model.max_new_tokens
     model.max_new_tokens = steps
+    os.makedirs(out_dir, exist_ok=True)
     try:
-        model.transcribe(audio)  # warm
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            model.transcribe(audio)
+        for tag, label, run in workloads:
+            run()  # warm
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1000
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1000
+            events = prof.key_averages()
+            kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in kernels) / 1000
+            path = os.path.join(out_dir, f"profile_{tag}.txt")
+            with open(path, "w") as f:
+                f.write(f"{card_line()}\n{label}, {steps} decode steps: wall {wall_ms:.3f} ms, "
+                        f"device kernels {device_ms:.3f} ms\n"
+                        f"{events.table(sort_by='self_device_time_total', row_limit=30)}\n")
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+                say(f"  profile {tag}: {e.key[:70]} {e.self_device_time_total / 1000:.3f} ms x{e.count}")
+            busy = device_ms / wall_ms if wall_ms else float("nan")
+            say(f"  profile {tag} ({label}): wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms, "
+                f"busy share {busy:.3f} -> {os.path.relpath(path, REPO)}")
     finally:
         model.max_new_tokens = keep
-    events = prof.key_averages()
-    kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1000
-    table = events.table(sort_by="self_device_time_total", row_limit=30)
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile_12s.txt")
-    with open(path, "w") as f:
-        f.write(f"{card_line()}\n12 s transcribe, {steps} decode steps: wall {wall_ms:.3f} ms, "
-                f"device kernels {device_ms:.3f} ms\n{table}\n")
-    busy = device_ms / wall_ms if wall_ms else float("nan")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        say(f"  profile: {e.key[:70]} {e.self_device_time_total / 1000:.3f} ms x{e.count}")
-    say(f"phase profile: ok wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms, busy share {busy:.3f} "
-        f"-> {os.path.relpath(path, REPO)}")
+    say("phase profile: ok")
 
 
 def phase_cli(model_path: str):
@@ -531,6 +705,7 @@ def phase_cli(model_path: str):
 
 # ---------------------------------------------------------------------------
 
+WIRE_PATHS = ("slice", "batch", "longform")  # the main paths, driven through EngineServer
 KERNELS = (
     ("q8_matmul", "light_whisper_tpu_torch/csrc/q8_matmul.cu", "light_whisper_tpu/ops/q8_matmul.py:164",
      "logits T=1 152576x1024"),
@@ -540,6 +715,10 @@ KERNELS = (
      "light_whisper_tpu/ops/q8_matmul.py:376", "qkv +norm T=1 4096x1024"),
     ("decode_attention", "light_whisper_tpu_torch/csrc/decode_attention.cu",
      "light_whisper_tpu/ops/decode_attention.py:100", "T=1 start=200 C=1024"),
+    ("decode_attention_unstacked", "light_whisper_tpu_torch/csrc/decode_attention.cu",
+     "light_whisper_tpu/ops/decode_attention.py:56", "T=64 start=0 C=1024"),
+    ("decode_attention_batched", "light_whisper_tpu_torch/csrc/decode_attention.cu",
+     "light_whisper_tpu/ops/decode_attention.py:215", "B=8 C=1024"),
 )
 
 
@@ -548,7 +727,7 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="identify, build and check the kernels; skip the model phases")
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile a short 12 s transcribe and write the table under DIR")
+                        help="also profile a short 12 s transcribe and a B=8 batch; tables under DIR")
     args = parser.parse_args(argv)
 
     try:
@@ -575,13 +754,21 @@ def main(argv=None) -> int:
         card = phase_identify(torch)
         phase_build()
         results = phase_kernels(torch)
-        launches = {}
+        launches = Launches(torch, [q8.LAUNCHES, da.LAUNCHES])
         if not args.kernels_only:
             phase_narrow(torch)
-            launches, model_path, model = phase_slice(torch, [q8.LAUNCHES, da.LAUNCHES])
-            if args.profile:
-                phase_profile(torch, model, args.profile)
-            del model
+            engine, client, model_path, cfg = start_server()
+            try:
+                phase_slice(torch, engine, client, cfg, launches)
+                phase_batch(torch, engine, client, launches)
+                phase_longform(torch, client, launches)
+                if args.profile:
+                    phase_profile(torch, engine.model, args.profile)
+                bye = client.call({"action": "exit", "request_id": 999})
+                require(bye.get("success") is True, f"exit: {bye}")
+            finally:
+                client.close()
+            del engine
             phase_cli(model_path)
         torch.cuda.synchronize()
         require("jax" not in sys.modules, "jax was imported")
@@ -592,8 +779,11 @@ def main(argv=None) -> int:
     kernels = []
     for name, source, replaces, case in KERNELS:
         row = next(r for r in results[name] if r["case"].startswith(case))
+        # launches: summed over the wire paths, each counted from 0; the
+        # kernel-vs-plain checks and the model-level batch checks are not counted
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches.get(name, 0), "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"]})
+                        "launches": sum(launches.by_path.get(path, {}).get(name, 0) for path in WIRE_PATHS),
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"]})
     say(card)
     say(json.dumps({"kernels": kernels}))
     if args.kernels_only:

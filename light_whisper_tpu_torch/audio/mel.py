@@ -80,19 +80,32 @@ def num_mel_frames(num_samples: int) -> int:
 
 
 def log_mel_with_max(waveform: torch.Tensor, frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(normalised log-mel [frames, 128] f32, clip max scalar) of a 1-D
-    waveform, float32 in [-1, 1] or int16 (scaled by 1/32768 on the device)."""
+    """(normalised log-mel [..., frames, 128] f32, clip max [...]) of waveforms
+    ``[..., N]``, float32 in [-1, 1] or int16 (scaled by 1/32768 on the
+    device). Each clip is clamped at its own max."""
     if waveform.dtype == torch.int16:
         waveform = waveform.float() * (1.0 / 32768.0)
+    lead = waveform.shape[:-1]
     pad = N_FFT // 2
-    x = torch.nn.functional.pad(waveform.float().view(1, 1, -1), (pad, pad), mode="reflect")[0, 0]
-    framed = x.unfold(0, N_FFT, HOP)[:frames]
+    x = torch.nn.functional.pad(waveform.float().reshape(-1, 1, waveform.shape[-1]), (pad, pad),
+                                mode="reflect")[:, 0]
+    framed = x.unfold(-1, N_FFT, HOP)[:, :frames]
     framed = framed * torch.as_tensor(hann_window(), device=x.device)
     spec = torch.fft.rfft(framed, n=N_FFT, dim=-1)
-    power = spec.real.square() + spec.imag.square()  # [frames, 201]
+    power = spec.real.square() + spec.imag.square()  # [clips, frames, 201]
     mel = power @ torch.as_tensor(whisper_mel_matrix(), device=x.device)
     log_spec = torch.log10(torch.clamp_min(mel, 1e-10))
-    clip_max = torch.max(log_spec)
+    clip_max = torch.amax(log_spec, dim=(-2, -1), keepdim=True)
     log_spec = torch.maximum(log_spec, clip_max - 8.0)
-    return (log_spec + 4.0) / 4.0, clip_max
+    return ((log_spec + 4.0) / 4.0).reshape(*lead, frames, N_MELS), clip_max.reshape(lead)
+
+
+def log_mel(waveform) -> torch.Tensor:
+    """[..., frames, 128] whisper-normalised log-mel of 16 kHz audio ``[..., N]``
+    (all of it: ``N // 160`` frames)."""
+    waveform = torch.as_tensor(waveform)
+    frames = num_mel_frames(int(waveform.shape[-1]))
+    if frames == 0:
+        return torch.zeros((*waveform.shape[:-1], 0, N_MELS), dtype=torch.float32, device=waveform.device)
+    return log_mel_with_max(waveform, frames)[0]
 

@@ -1,24 +1,37 @@
-// Layer-indexed GQA decode attention for Hopper (sm_90a).
+// GQA decode attention over the head-major KV cache for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel light_whisper_tpu/ops/decode_attention.py:
-//   decode_attention_pallas_stacked (body _kernel_stacked -> _kernel)
-// out[t, h, :] = softmax_j(q[t, h] . k[layer, h / G, j] * hd^-1/2, j <= start + t) . v[layer, h / G, j]
+// Replaces three Pallas TPU kernels of light_whisper_tpu/ops/decode_attention.py:
+//   decode_attention_pallas          (_kernel):          cache [Hkv, C, hd]
+//   decode_attention_pallas_stacked  (_kernel_stacked):  cache [L, Hkv, C, hd] at a layer
+//   decode_attention_pallas_batched  (_kernel_batched):  caches [B, L, Hkv, C, hd] at a layer,
+//                                                         stream b bounded by pos[b]
+// out[row, h, :] = softmax_j(q[row, h] . k[h / G, j] * hd^-1/2, j <= bound(row)) . v[h / G, j]
 //
-// Numerics (shared with the plain PyTorch version in ops/decode_attention.py):
-//   logits f32 from bf16 q and k, times hd^-1/2; keys past a row's position are masked
-//   (the TPU kernel writes -1e30 there; exp(-1e30 - m) is exactly 0 in f32, so reading only
-//   the live keys j <= start + t is exact); softmax in f32, normalised, p cast to bf16;
-//   p . v with bf16 operands accumulated in f32; output f32 [T, Hq, hd].
+// The first two share the entry lwt_decode_attention (the caller passes the layer's [Hkv, C, hd]
+// block: q[layer] is a view in torch, so the stacked form is the unstacked one at an offset);
+// query row t sits at position start + t. The batched form is lwt_decode_attention_batched:
+// one query row per stream, bounded by pos[b], read from device memory where the TPU kernel
+// used scalar prefetch, with each stream's cache at ((b * L + layer) * Hkv + kvh) * C * hd.
+// All three run the same row body (attend_row).
 //
-// What bounds it on the H100: bytes. Each (KV head, query row group) reads the live K and V rows
-// of its head, 2 * (pos + 1) * hd * 2 bytes; the arithmetic is 4 FLOPs per cached element per
-// query row, far below the card's ridge. At decode (T = 1) the whole step reads a few MB of
-// cache against ~0.6 GB of weights, so this kernel is a small share of a step.
+// Numerics (shared with the plain PyTorch versions in ops/decode_attention.py):
+//   logits f32 from bf16 q and k, times hd^-1/2; keys past a row's bound are masked
+//   (the TPU kernels write -1e30 there; exp(-1e30 - m) is exactly 0 in f32, so reading only
+//   the live keys is exact, and whatever a cache holds past the bound is never read);
+//   softmax in f32, normalised, p cast to bf16; p . v with bf16 operands accumulated in f32;
+//   output f32.
+//
+// What bounds it on the H100: bytes. Each (KV head, query row) reads the live K and V rows
+// of its head, 2 * nlive * hd * 2 bytes; the arithmetic is 4 FLOPs per cached element per
+// query row, far below the card's ridge. At decode the whole step reads a few MB of cache per
+// stream against ~0.6 GB of weights shared by the batch, so this kernel is a small share of a
+// step.
 //
 // What the simple design does about it:
-//   - one block of eight warps per (KV head, query row): at T = 1 that is 8 x 2 = 16 blocks,
-//     at T = 64 it is 1024; the warps of a block split the row's live keys between them, and
-//     rows of one KV head share K/V through L1/L2;
+//   - one block of eight warps per (stream, KV head, query row): at T = 1 that is 8 x 2 = 16
+//     blocks, at T = 64 it is 1024, batched at B = 8 it is 8 x 8 x 2 = 128; the warps of a
+//     block split the row's live keys between them, and rows of one KV head share K/V through
+//     L1/L2;
 //   - only the live keys of each row are read;
 //   - two passes over the live keys to keep the reference's rounding: pass 1 computes the max
 //     and the softmax denominator (online per lane, then merged across the warp and the block);
@@ -26,6 +39,8 @@
 //     p = bf16(exp(s - m) / l), and each lane accumulates p . v for its hd / 32 dims over the
 //     warp's 32-key tile; the eight partial outputs are summed through shared memory.
 //     Splitting a long cache over several blocks (flash-decoding) is later work.
+// The TPU batched kernel padded each program's G query rows to a sublane tile of 8 (_ROW_PAD);
+// that is a TPU layout rule and has no counterpart here.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,13 +71,13 @@ __device__ __forceinline__ float dot_row(const float* __restrict__ qs,
   return acc;
 }
 
+// One block: query row qrow [HD] against keys/values 0..nlive-1 of one KV head (kh, vh:
+// [C, HD]), result to orow [HD].
 template <int HD>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [T, Hq, HD]
-    const __nv_bfloat16* __restrict__ k,  // [Hkv, C, HD] (layer already applied)
-    const __nv_bfloat16* __restrict__ v,  // [Hkv, C, HD]
-    float* __restrict__ out,              // [T, Hq, HD]
-    int T, int Hq, int Hkv, int C, int start, float scale) {
+__device__ __forceinline__ void attend_row(const __nv_bfloat16* __restrict__ qrow,
+                                           const __nv_bfloat16* __restrict__ kh,
+                                           const __nv_bfloat16* __restrict__ vh,
+                                           float* __restrict__ orow, int nlive, float scale) {
   constexpr int kPerLane = HD / 32;
   __shared__ __align__(16) float qs[HD];
   __shared__ float red_m[kWarps];
@@ -71,20 +86,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int G = Hq / Hkv;
-  const int kvh = blockIdx.x;
-  const int row = blockIdx.y;  // row = g * T + t
-  const int g = row / T;
-  const int t = row - g * T;
-  const int h = kvh * G + g;
-  const int nlive = start + t + 1;
 
-  const __nv_bfloat16* qrow = q + ((size_t)t * Hq + h) * HD;
   for (int d = threadIdx.x; d < HD; d += kThreads) qs[d] = __bfloat162float(qrow[d]);
   __syncthreads();
-
-  const __nv_bfloat16* kh = k + (size_t)kvh * C * HD;
-  const __nv_bfloat16* vh = v + (size_t)kvh * C * HD;
 
   // Pass 1: max and denominator. Warp w owns the 32-key tiles w, w + 8, ...
   float m = kNegInit;
@@ -149,13 +153,53 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) partial[warp][lane * kPerLane + i] = acc[i];
   __syncthreads();
-  float* orow = out + ((size_t)t * Hq + h) * HD;
   for (int d = threadIdx.x; d < HD; d += kThreads) {
     float total = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += partial[w][d];
     orow[d] = total;
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [T, Hq, HD]
+    const __nv_bfloat16* __restrict__ k,  // [Hkv, C, HD] (layer already applied)
+    const __nv_bfloat16* __restrict__ v,  // [Hkv, C, HD]
+    float* __restrict__ out,              // [T, Hq, HD]
+    int T, int Hq, int Hkv, int C, int start, float scale) {
+  const int G = Hq / Hkv;
+  const int kvh = blockIdx.x;
+  const int row = blockIdx.y;  // row = g * T + t
+  const int g = row / T;
+  const int t = row - g * T;
+  const int h = kvh * G + g;
+  const size_t head = (size_t)kvh * C * HD;
+  attend_row<HD>(q + ((size_t)t * Hq + h) * HD, k + head, v + head, out + ((size_t)t * Hq + h) * HD,
+                 start + t + 1, scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) decode_attention_batched_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [B, Hq, HD]
+    const __nv_bfloat16* __restrict__ k,  // [B, L, Hkv, C, HD]
+    const __nv_bfloat16* __restrict__ v,  // [B, L, Hkv, C, HD]
+    const int* __restrict__ pos,          // [B]: stream b's query sits at pos[b]
+    float* __restrict__ out,              // [B, Hq, HD]
+    int Hq, int Hkv, int C, int L, int layer, float scale) {
+  const int G = Hq / Hkv;
+  const int kvh = blockIdx.x;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int h = kvh * G + g;
+  // the wrapper bounds the host mirror of pos; a device position outside the
+  // cache means the two disagree, and the launch fails rather than read another prefix
+  const int p = pos[b];
+  if (p < 0 || p >= C) __trap();
+  const int nlive = p + 1;
+  const size_t head = (((size_t)b * L + layer) * Hkv + kvh) * C * HD;
+  attend_row<HD>(q + ((size_t)b * Hq + h) * HD, k + head, v + head, out + ((size_t)b * Hq + h) * HD,
+                 nlive, scale);
 }
 
 template <int HD>
@@ -167,6 +211,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int T
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), T, Hq, Hkv, C, start,
       scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_batched(const void* q, const void* k, const void* v, const void* pos, void* out,
+                           int B, int Hq, int Hkv, int C, int L, int layer, float scale,
+                           cudaStream_t stream) {
+  dim3 grid(Hkv, Hq / Hkv, B);
+  decode_attention_batched_kernel<HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos), static_cast<float*>(out),
+      Hq, Hkv, C, L, layer, scale);
   return cudaGetLastError();
 }
 
@@ -185,6 +241,25 @@ extern "C" int lwt_decode_attention(const void* q, const void* k, const void* v,
     case 64: return (int)launch<64>(q, k, v, out, T, Hq, Hkv, C, start, scale, stream);
     case 128: return (int)launch<128>(q, k, v, out, T, Hq, Hkv, C, start, scale, stream);
     case 256: return (int)launch<256>(q, k, v, out, T, Hq, Hkv, C, start, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Returns a cudaError_t (0 on success). k_all and v_all are the whole [B, L, Hkv, C, hd]
+// caches; pos is a device int32 [B]. Stream b's one query row sees its keys 0..pos[b] of
+// layer `layer`.
+extern "C" int lwt_decode_attention_batched(const void* q, const void* k_all, const void* v_all,
+                                            const void* pos, void* out, int B, int Hq, int Hkv,
+                                            int C, int L, int hd, int layer, float scale,
+                                            void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || C <= 0 || layer < 0 || layer >= L) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (hd) {
+    case 64: return (int)launch_batched<64>(q, k_all, v_all, pos, out, B, Hq, Hkv, C, L, layer, scale, stream);
+    case 128: return (int)launch_batched<128>(q, k_all, v_all, pos, out, B, Hq, Hkv, C, L, layer, scale, stream);
+    case 256: return (int)launch_batched<256>(q, k_all, v_all, pos, out, B, Hq, Hkv, C, L, layer, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

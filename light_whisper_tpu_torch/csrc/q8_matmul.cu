@@ -174,7 +174,9 @@ cudaError_t launch_gemv(const void* x, const void* q, const void* s, const void*
                         const void* residual, void* y, int N, int K, float eps,
                         cudaStream_t stream, int num_sms) {
   const size_t smem = (size_t)T * K * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
+  // the static red/row_scale arrays count against the same 48 KB default
+  const size_t static_smem = sizeof(float) * (kGemvWarps + 1) * T;
+  if (smem + static_smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         q8_gemv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

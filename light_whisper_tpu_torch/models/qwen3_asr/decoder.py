@@ -1,20 +1,33 @@
-"""Qwen3 decoder, single stream (counterpart of ``models/qwen3_asr/decoder.py``).
+"""Qwen3 decoder (counterpart of ``models/qwen3_asr/decoder.py``).
 
 GQA with per-head q/k RMSNorm, half-split ("rotate_half") RoPE and SwiGLU.
 Parameters are the reference's tree as a dict of tensors: layer weights are
 stacked on a leading axis and a Python loop walks the layers; Q8 projections
 go through the layer-indexed kernels (``q[idx]`` is a view, nothing is
-copied). The KV cache is head-major ``[L, Hkv, C, hd]`` and is updated in
-place (the JAX package donates and rebuilds it).
+copied). The KV cache is head-major ``[L, Hkv, C, hd]`` (one stream) or
+``[B, L, Hkv, C, hd]`` (B streams, the layout of the reference's
+``vmap(init_cache)``) and is updated in place (the JAX package donates and
+rebuilds it).
+
+Three forwards share one layer body (:func:`_layer_forward_rows`), which
+differs only in how the new K/V are written and attended:
+
+- :func:`forward`: T new positions of one stream;
+- :func:`forward_decode_batch`: one new position for each of B streams, the
+  streams on the matmul row axis (T = B), each attending its own cache up to
+  its own position (the batched decode-attention kernel);
+- :func:`forward_prefill_batch`: T new positions for each of B streams, rows
+  ``[B·T, D]`` through the Q8 kernels, attention per stream.
 
 Routing follows the reference's fused-decode flow (``_layer_forward_stacked``):
 
-- T <= 8 with Q8 weights: the rms-norm prologue and the residual epilogue run
-  inside the Q8 kernel (``q8_matmul_stacked_fused``);
-- T > 8: the unfused stacked kernel, with ``rms_norm`` and the residual add in
-  torch;
+- up to 8 rows with Q8 weights: the rms-norm prologue and the residual
+  epilogue run inside the Q8 kernel (``q8_matmul_stacked_fused``);
+- more rows: the unfused stacked kernel, with ``rms_norm`` and the residual
+  add in torch;
 - attention of 1 <= T <= 64 bf16 rows goes through the decode-attention
-  kernel; longer prompts (and f32 precise compute) take the plain masked
+  kernel (stacked for one stream, unstacked per stream in the batched
+  prefill); longer prompts (and f32 precise compute) take the plain masked
   softmax. The reference's chunked attention for caches of 8192 and more is
   not ported yet.
 
@@ -26,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +49,9 @@ from light_whisper_tpu_torch.ops.decode_attention import (
     NEG_INF,
     attention_plain,
     decode_attention,
+    decode_attention_batched,
+    decode_attention_batched_plain,
+    decode_attention_unstacked,
 )
 from light_whisper_tpu_torch.ops.linear import apply_linear, dense_matmul
 from light_whisper_tpu_torch.ops.q8_matmul import (
@@ -70,6 +86,36 @@ def init_cache(cfg: DecoderConfig, capacity: int, dtype=torch.bfloat16, device="
         v=torch.zeros(shape, dtype=dtype, device=device),
         pos=0,
     )
+
+
+@dataclasses.dataclass
+class BatchKVCache:
+    """Per-stream buffers of B streams and their fill levels, kept twice: on
+    the device (read by the kernels, no host sync) and on the host (bounds
+    checks and prefill starts, no device read)."""
+
+    k: torch.Tensor  # [B, L, Hkv, C, hd]
+    v: torch.Tensor
+    pos: torch.Tensor  # int32 [B] on the cache's device
+    pos_host: List[int]
+
+    def set_positions(self, positions: Sequence[int]) -> None:
+        self.pos_host = [int(p) for p in positions]
+        self.pos = torch.tensor(self.pos_host, dtype=torch.int32, device=self.k.device)
+
+    def advance(self, n: int) -> None:
+        self.pos += n
+        self.pos_host = [p + n for p in self.pos_host]
+
+
+def init_cache_batch(cfg: DecoderConfig, batch: int, capacity: int, dtype=torch.bfloat16,
+                     device="cpu") -> BatchKVCache:
+    shape = (batch, cfg.block_count, cfg.head_count_kv, capacity, cfg.key_length)
+    cache = BatchKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                         v=torch.zeros(shape, dtype=dtype, device=device),
+                         pos=torch.zeros(0), pos_host=[])
+    cache.set_positions([0] * batch)
+    return cache
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, base: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,19 +154,41 @@ def _attention(cfg: DecoderConfig, q: torch.Tensor, cache: KVCache, idx: int, st
     return attention_plain(q, cache.k[idx], cache.v[idx], start, dtype)
 
 
-def _layer_forward(
+def _attention_unstacked(cfg: DecoderConfig, q: torch.Tensor, k_layer: torch.Tensor,
+                         v_layer: torch.Tensor, start: int) -> torch.Tensor:
+    """:func:`_attention` on one layer's ``[Hkv, C, hd]`` cache (the reference's
+    ``_attention``, as the batched prefill calls it for each stream)."""
+    T = q.shape[0]
+    dtype = torch_dtype(cfg.compute_dtype)
+    if dtype == torch.bfloat16 and 1 <= T <= ATTENTION_KERNEL_MAX_ROWS:
+        return decode_attention_unstacked(q, k_layer, v_layer, start)
+    return attention_plain(q, k_layer, v_layer, start, dtype)
+
+
+def _attention_decode_batch(cfg: DecoderConfig, q: torch.Tensor, cache: BatchKVCache, idx: int) -> torch.Tensor:
+    """Per-stream decode attention: row ``b`` of ``q [B, Hq, hd]`` attends to
+    its own cache up to ``pos[b]`` (its just-written slot included)."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    if dtype == torch.bfloat16:
+        return decode_attention_batched(q, cache.k, cache.v, cache.pos, idx, cache.pos_host)
+    return decode_attention_batched_plain(q, cache.k, cache.v, cache.pos, idx, dtype)
+
+
+def _layer_forward_rows(
     cfg: DecoderConfig,
     layers: Dict,
     idx: int,
-    x: torch.Tensor,  # [T, D]
-    cache: KVCache,
-    cos: torch.Tensor,
+    x: torch.Tensor,  # [R, D]
+    cos: torch.Tensor,  # [R, hd]
     sin: torch.Tensor,
+    attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
 ) -> torch.Tensor:
-    T = x.shape[0]
+    """One layer over R rows. ``attend(q [R, Hq, hd], k, v [R, Hkv, hd])`` writes
+    the new K/V into its cache and returns the attention ``[R, Hq, hd]``."""
+    R = x.shape[0]
     eps = cfg.rms_epsilon
     quantized = all("q" in layers[name] for name in _PROJ_NAMES)
-    fused = quantized and T <= FUSED_MAX_ROWS
+    fused = quantized and R <= FUSED_MAX_ROWS
 
     def proj(name, h):
         p = layers[name]
@@ -140,21 +208,87 @@ def _layer_forward(
         p = layers[name]
         return q8_matmul_stacked_fused(h, p["q"], p["s"], idx, residual=residual).to(residual.dtype)
 
-    q, k, v = _split_qkv(cfg, proj_norm("qkv", x, layers["attn_norm"][idx]), T)
+    q, k, v = _split_qkv(cfg, proj_norm("qkv", x, layers["attn_norm"][idx]), R)
     q = rms_norm(q, layers["q_norm"][idx], eps)
     k = rms_norm(k, layers["k_norm"][idx], eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    pos = cache.pos
-    cache.k[idx, :, pos : pos + T] = k.transpose(0, 1).to(cache.k.dtype)
-    cache.v[idx, :, pos : pos + T] = v.transpose(0, 1).to(cache.v.dtype)
-
-    attn = _attention(cfg, q, cache, idx, pos)
-    x = proj_residual("o", attn.reshape(T, -1), x)
+    attn = attend(q, k, v)
+    x = proj_residual("o", attn.reshape(R, -1), x)
     gateup = proj_norm("gateup", x, layers["ffn_norm"][idx])
     gate, up = torch.chunk(gateup, 2, dim=-1)
     return proj_residual("down", (torch.nn.functional.silu(gate) * up).to(x.dtype), x)
+
+
+def _layer_forward(
+    cfg: DecoderConfig,
+    layers: Dict,
+    idx: int,
+    x: torch.Tensor,  # [T, D]
+    cache: KVCache,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> torch.Tensor:
+    def attend(q, k, v):
+        pos, T = cache.pos, q.shape[0]
+        cache.k[idx, :, pos : pos + T] = k.transpose(0, 1).to(cache.k.dtype)
+        cache.v[idx, :, pos : pos + T] = v.transpose(0, 1).to(cache.v.dtype)
+        return _attention(cfg, q, cache, idx, pos)
+
+    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend)
+
+
+def _layer_forward_batch(
+    cfg: DecoderConfig,
+    layers: Dict,
+    idx: int,
+    x: torch.Tensor,  # [B, D]: one new token per stream
+    cache: BatchKVCache,
+    cos: torch.Tensor,  # [B, hd]: per-stream rope tables
+    sin: torch.Tensor,
+    streams: torch.Tensor,  # arange(B), int64 on the device
+    pos: torch.Tensor,  # cache.pos as int64
+) -> torch.Tensor:
+    """One layer over B single-token streams: the projections see T = B rows
+    (one weight read for the batch); the cache write and attention are per
+    stream, each at its own position."""
+
+    def attend(q, k, v):
+        # one indexed write for the batch: stream b's row lands at pos[b]
+        cache.k[:, idx][streams, :, pos] = k.to(cache.k.dtype)
+        cache.v[:, idx][streams, :, pos] = v.to(cache.v.dtype)
+        return _attention_decode_batch(cfg, q, cache, idx)
+
+    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend)
+
+
+def _layer_forward_batch_seq(
+    cfg: DecoderConfig,
+    layers: Dict,
+    idx: int,
+    x: torch.Tensor,  # [B, T, D]: T new positions per stream
+    cache: BatchKVCache,
+    cos: torch.Tensor,  # [B·T, hd]
+    sin: torch.Tensor,
+    streams: torch.Tensor,  # [B, 1] int64 on the device
+    positions: torch.Tensor,  # [B, T] int64: pos[b] + t
+) -> torch.Tensor:
+    """One layer over B streams × T new positions: rows ``[B·T, D]`` through
+    the Q8 kernels; cache writes and attention per stream."""
+    B, T, D = x.shape
+
+    def attend(q, k, v):
+        n_kv, hd = k.shape[-2:]
+        cache.k[:, idx][streams, :, positions] = k.reshape(B, T, n_kv, hd).to(cache.k.dtype)
+        cache.v[:, idx][streams, :, positions] = v.reshape(B, T, n_kv, hd).to(cache.v.dtype)
+        qb = q.reshape(B, T, *q.shape[1:])
+        return torch.cat([
+            _attention_unstacked(cfg, qb[b], cache.k[b, idx], cache.v[b, idx], cache.pos_host[b])
+            for b in range(B)
+        ])
+
+    return _layer_forward_rows(cfg, layers, idx, x.reshape(B * T, D), cos, sin, attend).reshape(B, T, D)
 
 
 def forward(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, cache: KVCache) -> torch.Tensor:
@@ -168,6 +302,40 @@ def forward(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, cache: KVCac
     for idx in range(cfg.block_count):
         x = _layer_forward(cfg, layers, idx, x, cache, cos, sin)
     cache.pos += T
+    return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
+
+
+def forward_decode_batch(cfg: DecoderConfig, params: Dict, x: torch.Tensor, cache: BatchKVCache) -> torch.Tensor:
+    """One decode step for B independent streams (``x [B, D]``, one token
+    each); returns hidden states ``[B, D]`` and advances every stream by one.
+    The streams ride the matmul row axis, so each layer's weights are read
+    once for the batch."""
+    cos, sin = rope_tables(cache.pos, cfg.key_length, cfg.rope_freq_base)
+    streams = torch.arange(x.shape[0], device=x.device)
+    pos = cache.pos.long()
+    layers = params["layers"]
+    for idx in range(cfg.block_count):
+        x = _layer_forward_batch(cfg, layers, idx, x, cache, cos, sin, streams, pos)
+    cache.advance(1)
+    return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
+
+
+def forward_prefill_batch(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor,
+                          cache: BatchKVCache) -> torch.Tensor:
+    """Prefill T new positions for each of B streams (``embeds [B, T, D]``);
+    returns hidden states ``[B, T, D]`` and advances every stream by T."""
+    B, T, _ = embeds.shape
+    capacity = cache.k.shape[3]
+    if any(p + T > capacity for p in cache.pos_host):
+        raise ValueError(f"positions {cache.pos_host} + {T} exceed the cache capacity {capacity}")
+    positions = cache.pos.long()[:, None] + torch.arange(T, device=embeds.device)  # [B, T]
+    cos, sin = rope_tables(positions.reshape(-1), cfg.key_length, cfg.rope_freq_base)
+    streams = torch.arange(B, device=embeds.device)[:, None]
+    layers = params["layers"]
+    x = embeds
+    for idx in range(cfg.block_count):
+        x = _layer_forward_batch_seq(cfg, layers, idx, x, cache, cos, sin, streams, positions)
+    cache.advance(T)
     return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
 
 

@@ -14,13 +14,13 @@ Q8 linear goes through the Q8 kernel.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from light_whisper_tpu.models.qwen3_asr.config import AudioEncoderConfig
+from light_whisper_tpu.models.qwen3_asr.config import AudioEncoderConfig, conv_output_length
 from light_whisper_tpu_torch.models.qwen3_asr.decoder import torch_dtype
 from light_whisper_tpu_torch.ops.decode_attention import NEG_INF
 from light_whisper_tpu_torch.ops.linear import apply_linear
@@ -136,3 +136,19 @@ def encode_chunks_batch(
 def encode_chunks(cfg: AudioEncoderConfig, params: Dict, mel: torch.Tensor, valid_tokens: int, num_chunks: int) -> torch.Tensor:
     """Single-stream :func:`encode_chunks_batch`: [num_chunks * tpc, output_dim]."""
     return encode_chunks_batch(cfg, params, mel[None], [valid_tokens], num_chunks)[0]
+
+
+def encode(cfg: AudioEncoderConfig, params: Dict, mel: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Pad ``mel`` ([frames, mels], or [B, frames, mels] with one frame count) to
+    whole chunks, encode, and report the valid token count of ``frames``: every
+    frame counts, a padded tail included."""
+    batched = mel.dim() == 3
+    mel = mel.float() if batched else mel.float()[None]
+    frames = mel.shape[1]
+    chunk = cfg.chunk_frames
+    num_chunks = max(1, (frames + chunk - 1) // chunk)
+    mel = F.pad(mel, (0, 0, 0, num_chunks * chunk - frames))
+    full_chunks, tail = divmod(frames, chunk)
+    valid = full_chunks * cfg.tokens_per_chunk + (conv_output_length(tail) if tail else 0)
+    out = encode_chunks_batch(cfg, params, mel, [valid] * mel.shape[0], num_chunks)
+    return (out if batched else out[0]), valid

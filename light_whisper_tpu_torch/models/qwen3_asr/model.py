@@ -10,6 +10,13 @@ semantics, not compiler needs:
   inert; the first token comes from the true last row);
 - the KV cache capacity is a power of two from 1024.
 
+:meth:`Qwen3ASRModel.transcribe_batch` steps several clips together: one
+batched prefill (``forward_prefill_batch``, one weight read per layer for the
+batch, where the reference runs ``vmap(forward)``; both compute the same
+function) and one batched greedy decode, in chunks of ``max_decode_batch()``
+streams (a KV-memory bound). The reference's batch-size buckets and row-0
+padding exist only to bound XLA compiles and are not ported.
+
 The reference's load-overlapped shadow warmup and its device mesh work around
 XLA compile walls and the TPU relay; they are not ported.
 """
@@ -19,7 +26,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Dict, List
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,7 +37,7 @@ from light_whisper_tpu.models.qwen3_asr.prompt import resolve_prompt_ids
 from light_whisper_tpu_torch.audio import mel as wmel
 from light_whisper_tpu_torch.audio.mel import SAMPLE_RATE
 from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
-from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode_chunks
+from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode, encode_chunks
 from light_whisper_tpu_torch.models.qwen3_asr.loader import Qwen3ASRWeights
 
 PROMPT_BUCKET = 64
@@ -79,6 +87,17 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def max_decode_batch() -> int:
+    """Operator bound on the decode batch (``LWT_MAX_DECODE_BATCH``, default 8).
+
+    KV memory scales with it (B × L × Hkv × C × hd × 2 × k/v: 117 MB a stream
+    at 0.6B and C = 1024); malformed values fall back to the default."""
+    try:
+        return max(1, int(os.environ.get("LWT_MAX_DECODE_BATCH", "8")))
+    except ValueError:
+        return 8
+
+
 @dataclasses.dataclass
 class TranscriptionResult:
     text: str
@@ -92,6 +111,63 @@ def _build_prompt_embeds(params: Dict, ids: torch.Tensor, audio_embeds: torch.Te
     embeds = dec.embed_tokens(params, ids).to(dtype)
     embeds[prefix_len : prefix_len + n_audio] = audio_embeds[:n_audio].to(dtype)
     return embeds
+
+
+def _prefill_batch(cfg, params: Dict, embeds: torch.Tensor, cache: dec.BatchKVCache,
+                   last_indices: Sequence[int]) -> torch.Tensor:
+    """Prefill ``embeds [B, T, D]`` into ``cache``; returns each stream's
+    first greedy token (argmax at its row ``last_indices[b]``), on the device."""
+    hidden = dec.forward_prefill_batch(cfg, params, embeds, cache)
+    rows = torch.as_tensor(list(last_indices), device=hidden.device)
+    last = hidden[torch.arange(hidden.shape[0], device=hidden.device), rows]  # [B, D]
+    return torch.argmax(dec.logits_for(cfg, params, last), dim=-1)
+
+
+def _decode_greedy_batch(
+    cfg,
+    params: Dict,
+    first_tokens: torch.Tensor,  # [B] on the device
+    cache: dec.BatchKVCache,
+    eos_token_id: int,
+    max_new_tokens: int,
+    budgets: Optional[Sequence[int]] = None,
+    step_times: Optional[List[float]] = None,
+) -> np.ndarray:
+    """Batched greedy decode: all streams step together until every one has
+    emitted EOS or used its budget; a stream's token is recorded only while it
+    is not done. Returns ``[B, max_new_tokens]`` int64 ids, ``-1`` in unused
+    slots.
+
+    ``budgets`` caps tokens per stream below ``max_new_tokens``. The one host
+    sync per step is the ``done.all()`` check (it also closes the step's wall
+    time in ``step_times``). The reference's final step, whose token is never
+    recorded, is skipped."""
+    dev = first_tokens.device
+    B = first_tokens.shape[0]
+    tokens = torch.full((B, max_new_tokens), -1, dtype=torch.int64, device=dev)
+    current = first_tokens.to(torch.int64)
+    done = current == eos_token_id
+    if budgets is not None:
+        budgets = torch.as_tensor(list(budgets), dtype=torch.int64, device=dev)
+        done = done | (budgets <= 0)
+    count = 0
+    all_done = bool(done.all())
+    while count < max_new_tokens and not all_done:
+        tokens[:, count] = torch.where(done, -1, current)
+        count += 1
+        if count == max_new_tokens:
+            break
+        t0 = time.perf_counter()
+        hidden = dec.forward_decode_batch(cfg, params, dec.embed_tokens(params, current), cache)
+        current = torch.argmax(dec.logits_for(cfg, params, hidden), dim=-1)
+        newly_done = current == eos_token_id
+        if budgets is not None:
+            newly_done = newly_done | (count >= budgets)
+        done = done | newly_done
+        all_done = bool(done.all())
+        if step_times is not None:
+            step_times.append(time.perf_counter() - t0)
+    return tokens.cpu().numpy()
 
 
 class Qwen3ASRModel:
@@ -121,7 +197,7 @@ class Qwen3ASRModel:
         # host wall of each decode step of the last transcribe (seconds)
         self.last_decode_step_s: List[float] = []
 
-    def _cache_for(self, needed: int) -> dec.KVCache:
+    def _capacity_for(self, needed: int) -> int:
         capacity = 1024
         while capacity < needed:
             capacity *= 2
@@ -130,7 +206,10 @@ class Qwen3ASRModel:
             raise ValueError(
                 f"prompt+decode budget {needed} exceeds context {self.config.decoder.context_length}"
             )
-        return dec.init_cache(self.config.decoder, capacity, self.cache_dtype, self.device)
+        return capacity
+
+    def _cache_for(self, needed: int) -> dec.KVCache:
+        return dec.init_cache(self.config.decoder, self._capacity_for(needed), self.cache_dtype, self.device)
 
     def _prepare(self, audio: np.ndarray):
         """Host-side request layout: ``(padded audio, n_audio, padded prompt ids,
@@ -140,7 +219,7 @@ class Qwen3ASRModel:
         padded = np.zeros(bucket, dtype=audio.dtype)
         padded[: len(audio)] = audio
         n_audio = self._audio_tokens_for(len(audio))
-        ids = self.prefix_ids + [self.config.audio_token_id] * n_audio + self.suffix_ids
+        ids = self._prompt_ids(n_audio)
         true_len = len(ids)
         ids_padded = np.full(_round_up(true_len, PROMPT_BUCKET), self.config.pad_token_id, dtype=np.int64)
         ids_padded[:true_len] = ids
@@ -186,6 +265,71 @@ class Qwen3ASRModel:
         return self._parse_output(generated)
 
     @torch.no_grad()
+    def transcribe_batch(self, audios: Sequence[np.ndarray]) -> List[TranscriptionResult]:
+        """Batched greedy transcription of several clips.
+
+        Every clip is padded to the longest one's audio bucket and encoded with
+        that bucket's valid-token count (the reference's ``_encode_padded``),
+        every prompt to one 64-token bucket; the streams then prefill and
+        decode together, ``max_decode_batch()`` at a time. One clip takes
+        :meth:`transcribe`."""
+        if not audios:
+            return []
+        if len(audios) == 1:
+            return [self.transcribe(audios[0])]
+        audios = [as_device_audio(np.asarray(a).reshape(-1)) for a in audios]
+        if any(a.dtype != np.int16 for a in audios):
+            # one array for all clips: int16 ones scale as the mel front end would (exact)
+            audios = [a.astype(np.float32) / np.float32(32768.0) if a.dtype == np.int16 else a for a in audios]
+        bucket = max(bucket_audio_samples(len(a)) for a in audios)
+        padded = np.zeros((len(audios), bucket), dtype=audios[0].dtype)
+        for row, audio in enumerate(audios):
+            padded[row, : len(audio)] = audio
+        audio_embeds, n_audio = self._encode_padded(padded, [len(a) for a in audios])
+
+        prompts = [self._prompt_ids(n) for n in n_audio]
+        prompt_lens = [len(p) for p in prompts]
+        bucket_len = _round_up(max(prompt_lens), PROMPT_BUCKET)
+        capacity = self._capacity_for(bucket_len + self.max_new_tokens)
+        ids = np.full((len(audios), bucket_len), self.config.pad_token_id, dtype=np.int64)
+        for row, prompt in enumerate(prompts):
+            ids[row, : len(prompt)] = prompt
+        ids = torch.from_numpy(ids).to(self.device)
+        compute = dec.torch_dtype(self.config.decoder.compute_dtype)
+        embeds = torch.stack([
+            _build_prompt_embeds(self.decoder_params, ids[row], audio_embeds[row], n_audio[row],
+                                 len(self.prefix_ids), compute)
+            for row in range(len(audios))
+        ])
+
+        self.last_decode_step_s = []
+        results: List[TranscriptionResult] = []
+        max_b = max_decode_batch()
+        for c0 in range(0, len(audios), max_b):
+            rows = slice(c0, c0 + max_b)
+            lens = prompt_lens[rows]
+            cache = dec.init_cache_batch(self.config.decoder, len(lens), capacity, self.cache_dtype, self.device)
+            firsts = _prefill_batch(self.config.decoder, self.decoder_params, embeds[rows], cache,
+                                    [n - 1 for n in lens])
+            # the padded tails wrote K/V past each stream's prompt; decode
+            # overwrites them one position at a time before any read
+            cache.set_positions(lens)
+            tokens = _decode_greedy_batch(self.config.decoder, self.decoder_params, firsts, cache,
+                                          self.config.eos_token_id, self.max_new_tokens,
+                                          step_times=self.last_decode_step_s)
+            results += [self._parse_output([int(t) for t in row if t >= 0]) for row in tokens]
+        return results
+
+    def _encode_padded(self, padded: np.ndarray, true_samples: Sequence[int]):
+        """Encode clips already padded to one bucket (``[B, bucket]``) in one
+        pass. As in the reference, the encoder masks by the padded bucket's
+        valid-token count, not the clip's own (``transcribe`` uses the clip's);
+        returns ``(embeds [B, tokens, D], each clip's own audio-token count)``."""
+        mel = wmel.log_mel(torch.from_numpy(padded).to(self.device))
+        embeds, _valid = encode(self.config.audio, self.encoder_params, mel)
+        return embeds, [self._audio_tokens_for(n) for n in true_samples]
+
+    @torch.no_grad()
     def teacher_forced_logits(self, audio: np.ndarray, tokens: List[int]) -> List[torch.Tensor]:
         """Logits after the prompt and after each of ``tokens`` fed in turn
         (``len(tokens) + 1`` rows of the padded vocab, f32 on the host). Used to
@@ -210,6 +354,9 @@ class Qwen3ASRModel:
                     break
         text = self.tokenizer.decode(generated).strip()
         return TranscriptionResult(text=text, language=language, tokens=generated)
+
+    def _prompt_ids(self, n_audio: int) -> List[int]:
+        return self.prefix_ids + [self.config.audio_token_id] * n_audio + self.suffix_ids
 
     def _audio_tokens_for(self, n_samples: int) -> int:
         true_frames = wmel.num_mel_frames(n_samples)

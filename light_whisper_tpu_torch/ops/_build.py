@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``light_whisper_tpu_torch/csrc/*.cu``).
 
-All sources compile, at first use, with ``nvcc`` into one shared library with
-a plain C interface, which is loaded with ``ctypes``. PyTorch's own extension
+At first use, every source compiles with its own ``nvcc``, all started at
+once, and the objects link into one shared library with a plain C interface,
+which is loaded with ``ctypes``. PyTorch's own extension
 builder is not used: a source that includes PyTorch's headers takes minutes
 to compile, a plain C interface seconds. Pointers and the CUDA stream are
 passed as ``c_void_p``, integers as ``c_int``.
@@ -24,10 +25,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lwt_torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "liblwt_kernels.so"
 
 _lock = threading.Lock()
@@ -69,12 +68,28 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)
+    ]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    try:
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{build_log}")
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees a partial file
     return lib_path
 
@@ -90,6 +105,8 @@ def library() -> ctypes.CDLL:
             lib.lwt_q8_matmul.restype = ci
             lib.lwt_decode_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_decode_attention.restype = ci
+            lib.lwt_decode_attention_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
+            lib.lwt_decode_attention_batched.restype = ci
             _lib = lib
         return _lib
 

@@ -5,6 +5,12 @@ seam that reaches JAX: the backend and device report, the warmup ladder, the
 session pool and incremental VAD (this port serves the stateless path), and
 ``transcribe`` itself. Replies keep the reference's fields one for one;
 ``backend`` reports ``cuda`` (or ``cpu`` when run on the CPU on purpose).
+
+Concurrent requests coalesce through the inherited scheduler seams
+(``_submit_decode`` → ``_run_decode_batch`` → ``model.transcribe_batch``), and
+long recordings take the inherited ``_transcribe_long_form``
+(``serving/longform.py``: VAD over the whole recording, windows, one batched
+decode); both reference modules are JAX-free.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import numpy as np
 import torch
 
 from light_whisper_tpu.runtime import qwen3_server as _reference
-from light_whisper_tpu.runtime.qwen3_server import MIN_DURATION_SECONDS, SAMPLE_RATE
+from light_whisper_tpu.runtime.qwen3_server import LONG_FORM_THRESHOLD_SECONDS, MIN_DURATION_SECONDS, SAMPLE_RATE
 from light_whisper_tpu_torch import __version__
 from light_whisper_tpu_torch.models.qwen3_asr.model import as_device_audio, resolve_device
 
@@ -160,6 +166,11 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
                     "engine": self.engine,
                     "input_mode": input_mode,
                 }
+            if options.get("long_form", duration > LONG_FORM_THRESHOLD_SECONDS):
+                return self._transcribe_long_form(
+                    audio, duration, input_mode, hot_words, stream,
+                    max_window_seconds=options.get("long_form_max_window_seconds"),
+                )
             audio, vad_segments, vad_ms = self._filter_speech(audio, session_key)
             speech_duration = len(audio) / float(SAMPLE_RATE)
             if not vad_segments:

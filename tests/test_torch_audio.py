@@ -60,6 +60,19 @@ def test_int16_path_equals_scaled_float_path():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_log_mel_of_several_clips_matches_the_reference_clip_by_clip():
+    """``log_mel`` over ``[B, N]`` clamps each clip at its own max, as the
+    reference's ``log_mel`` does for each clip alone; N < 160 gives no frame."""
+    rng = np.random.default_rng(5)
+    waves = np.stack([speechlike(1.5, seed=6), (rng.standard_normal(24000) * 1e-3).astype(np.float32),
+                      np.zeros(24000, np.float32)])
+    got = port_mel.log_mel(torch.from_numpy(waves))
+    assert got.shape == (3, 150, 128)
+    for b, wave in enumerate(waves):
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(ref_mel.log_mel(wave)), atol=ATOL, rtol=0)
+    assert port_mel.log_mel(np.zeros((2, 100), np.float32)).shape == (2, 0, 128)
+
+
 @pytest.mark.parametrize("n", [8000, 8160, 24000])
 def test_mel_rows_follow_the_frame_count(n):
     """One row per hop of the (bucketed) waveform, the last centred frame dropped."""

@@ -5,7 +5,8 @@ without a GPU. The file imports no JAX, so it also runs on a machine that has
 only PyTorch: ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_cuda.py`` (the repository's conftest imports JAX).
 Tolerances as in ``chip_smoke.py``: 1e-4 relative for the Q8 forms, one bf16
-ulp for the residual epilogue, 5e-3 for attention, bitwise on integers.
+ulp for the residual epilogue, 5e-3 for attention (stacked, unstacked and
+batched), bitwise on integers.
 """
 
 import numpy as np
@@ -112,3 +113,55 @@ def test_attention_refuses_positions_past_the_cache(cuda):
     kc = torch.zeros(1, 2, 64, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="exceed"):
         da.decode_attention(torch.zeros(4, 4, 128, device=cuda), kc, kc, 62, 0)
+
+
+@pytest.mark.parametrize("T,start", [(1, 0), (64, 300)])
+def test_decode_attention_unstacked(cuda, T, start):
+    kc = torch.randn(2, 1024, 128, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(2, 1024, 128, device=cuda).to(torch.bfloat16)
+    qx = torch.randn(T, 4, 128, device=cuda) * 2
+    before = da.LAUNCHES["decode_attention_unstacked"]
+    got = da.decode_attention_unstacked(qx, kc, vc, start)
+    assert da.LAUNCHES["decode_attention_unstacked"] == before + 1
+    torch.testing.assert_close(got, da.attention_plain(qx, kc, vc, start), atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("positions", [[0, 37], [5, 1023, 511, 0, 64, 700, 1, 999]])
+def test_decode_attention_batched(cuda, positions):
+    """Mixed positions with junk past each one (the padded prompt tails)."""
+    B, L, Hq, Hkv, C, hd = len(positions), 3, 16, 8, 1024, 128
+    kc = torch.randn(B, L, Hkv, C, hd, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(B, L, Hkv, C, hd, device=cuda).to(torch.bfloat16)
+    for b, p in enumerate(positions):
+        kc[b, :, :, p + 1:] = 1e4
+        vc[b, :, :, p + 1:] = -1e4
+    qx = torch.randn(B, Hq, hd, device=cuda) * 2
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    before = da.LAUNCHES["decode_attention_batched"]
+    got = da.decode_attention_batched(qx, kc, vc, pos, 1, positions)
+    assert da.LAUNCHES["decode_attention_batched"] == before + 1
+    torch.testing.assert_close(got, da.decode_attention_batched_plain(qx, kc, vc, pos, 1), atol=5e-3, rtol=0)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_batched_attention_needs_device_int32_positions(cuda):
+    kc = torch.zeros(2, 1, 2, 64, 128, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(2, 4, 128, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention_batched(q, kc, kc, torch.tensor([1, 2], device=cuda), 0, [1, 2])
+    with pytest.raises(ValueError, match="exceed"):
+        da.decode_attention_batched(q, kc, kc, torch.tensor([1, 64], dtype=torch.int32, device=cuda), 0, [1, 64])
+
+
+def test_fused_form_at_eight_rows_and_48_kb_of_staged_input(cuda):
+    """B = 8 batched decode of the down projection: 8 x 3072 bf16 rows fill the
+    48 KB default shared memory before the kernel's own arrays."""
+    q, s = _weights(2, 1024, 3072, seed=5, device=cuda)
+    x = torch.randn(8, 3072, device=cuda).to(torch.bfloat16)
+    res = torch.randn(8, 1024, device=cuda).to(torch.bfloat16)
+    got = q8.q8_matmul_stacked_fused(x, q, s, 1, residual=res)
+    acc = q8.q8_matmul_fused_plain(x, q[1], s[1], None, 1e-6, None)
+    want = q8.q8_matmul_fused_plain(x, q[1], s[1], None, 1e-6, res)
+    torch.cuda.synchronize()
+    mag = torch.maximum(want.abs(), acc.abs()).clamp_min(1e-30)
+    assert bool(((got - want).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7) * 1.0001).all())

@@ -12,10 +12,11 @@ import torch
 
 from helpers.tiny_model import write_tiny_model
 from light_whisper_tpu.models.qwen3_asr.config import conv_output_length
+from light_whisper_tpu.models.qwen3_asr.encoder import encode as ref_encode_mel
 from light_whisper_tpu.models.qwen3_asr.encoder import encode_chunks_batch as ref_encode
 from light_whisper_tpu.models.qwen3_asr.encoder import sinusoid_positions as ref_positions
 from light_whisper_tpu.models.qwen3_asr.loader import Qwen3ASRWeights as RefWeights
-from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode_chunks_batch, sinusoid_positions
+from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode, encode_chunks_batch, sinusoid_positions
 from light_whisper_tpu_torch.models.qwen3_asr.params import params_from_numpy
 
 
@@ -55,3 +56,23 @@ def test_encoder_matches_reference(weights, frames_per_stream):
         ref_rows = want[b, :n]
         err = np.abs(got[b, :n].float().numpy() - ref_rows).max()
         assert err <= 2e-2 * np.abs(ref_rows).max(), (b, err, np.abs(ref_rows).max())
+
+
+@pytest.mark.parametrize("frames", [250, 300])
+def test_encode_pads_to_chunks_and_counts_every_frame(weights, frames):
+    """``encode`` (the reference's host wrapper): pad to whole chunks, valid
+    count from all of ``frames``; a [B, frames, mels] batch gives each clip
+    what it gets alone."""
+    ref, enc = weights
+    cfg = ref.config.audio
+    rng = np.random.default_rng(frames)
+    mels = (rng.standard_normal((2, frames, cfg.num_mel_bins)) * 0.5).astype(np.float32)
+    got, valid = encode(cfg, enc, torch.from_numpy(mels))
+    for b in range(2):
+        want, want_valid = ref_encode_mel(cfg, ref.encoder_params, mels[b])
+        one, one_valid = encode(cfg, enc, torch.from_numpy(mels[b]))
+        assert valid == one_valid == want_valid
+        want = np.asarray(want.astype(jnp.float32))[:valid]
+        for rows in (got[b, :valid], one[:valid]):
+            err = np.abs(rows.float().numpy() - want).max()
+            assert err <= 2e-2 * np.abs(want).max(), (b, err)

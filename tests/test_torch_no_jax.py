@@ -1,8 +1,9 @@
 """The port never imports JAX (nor ml_dtypes, which the card's machine lacks).
 
 A fresh interpreter builds the port's server on the CPU over a tiny GGUF,
-answers one ``transcribe`` through ``EngineServer`` and then lists what got
-imported. Asking for the CUDA device on a machine without a GPU raises, and
+answers through ``EngineServer`` one ``transcribe``, then a pair of
+transcribes coalesced into one batch (queued behind a busy device) and a
+``long_form`` request, and then lists what got imported. Asking for the CUDA device on a machine without a GPU raises, and
 ``engine_cli serve`` without ``--device cpu`` fails loudly instead of
 serving on the CPU."""
 
@@ -19,7 +20,7 @@ from helpers.tiny_model import write_tiny_model
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import base64, io, json, sys
+import base64, io, json, sys, threading, time
 import numpy as np
 import torch
 from light_whisper_tpu.eval.speechlike import speechlike
@@ -28,21 +29,53 @@ from light_whisper_tpu_torch.runtime.qwen3_server import Qwen3EngineServer
 from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
 
 path = sys.argv[1]
-pcm = np.round(speechlike(2.0, seed=1) * 32767).astype("<i2")
-cmd = {"action": "transcribe", "request_id": 1, "audio_base64": base64.b64encode(pcm.tobytes()).decode(),
-       "audio_format": "pcm_s16le", "sample_rate": 16000}
-out = io.StringIO()
-server = Qwen3EngineServer(model_path=path, device="cpu",
-                           model_factory=lambda p: Qwen3ASRModel(p, device="cpu", max_new_tokens=4))
-EngineServer(server.hooks(), stdin=io.StringIO(json.dumps(cmd) + "\n"), stdout=out).run()
-replies = [json.loads(l) for l in out.getvalue().splitlines()]
+
+def transcribe(rid, audio, **options):
+    pcm = np.round(audio * 32767).astype("<i2")
+    cmd = {"action": "transcribe", "audio_base64": base64.b64encode(pcm.tobytes()).decode(),
+           "audio_format": "pcm_s16le", "sample_rate": 16000, "options": options}
+    if rid is not None:
+        cmd["request_id"] = rid
+    return json.dumps(cmd) + "\n"
+
+def serve(server, lines):
+    out = io.StringIO()
+    EngineServer(server.hooks(), stdin=io.StringIO("".join(lines)), stdout=out).run()
+    return [json.loads(l) for l in out.getvalue().splitlines()]
+
+def make():
+    return Qwen3EngineServer(model_path=path, device="cpu",
+                             model_factory=lambda p: Qwen3ASRModel(p, device="cpu", max_new_tokens=4))
+
+replies = serve(make(), [transcribe(1, speechlike(2.0, seed=1))])
+
+# a busy device: two requests queue behind it and coalesce; the long-form
+# request (no request_id: served in order) waits for both
+server = make()
+server.initialize()
+scheduler = server._decode_scheduler()
+running, release = threading.Event(), threading.Event()
+scheduler.submit("busy", lambda: (running.set(), release.wait(60)), supersede=False)
+running.wait(10)
+
+def release_when_queued():
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and len(scheduler._queue) < 2:
+        time.sleep(0.005)
+    release.set()
+
+threading.Thread(target=release_when_queued, daemon=True).start()
+recording = np.concatenate([speechlike(2.0, seed=3), np.zeros(16000, np.float32), speechlike(2.0, seed=4)])
+more = serve(server, [transcribe(2, speechlike(2.0, seed=2)), transcribe(3, speechlike(2.5, seed=5)),
+                      transcribe(None, recording, long_form=True, long_form_max_window_seconds=3.0),
+                      json.dumps({"action": "stats", "request_id": 4}) + "\n"])
 cuda_error = None
 if not torch.cuda.is_available():
     try:
         Qwen3ASRModel(path, device="cuda")
     except RuntimeError as exc:
         cuda_error = str(exc)
-print(json.dumps({"replies": replies, "cuda_error": cuda_error,
+print(json.dumps({"replies": replies, "more": more, "cuda_error": cuda_error,
                   "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes"))}))
 """
 
@@ -69,6 +102,11 @@ def test_port_serves_without_importing_jax(tiny_gguf):
     init, reply = result["replies"]
     assert init["success"] is True and init["backend"] == "cpu"
     assert reply["success"] is True and reply["vad_segments"] >= 1
+    _init, first, second, long_form, stats = result["more"]
+    assert {first["request_id"], second["request_id"]} == {2, 3}
+    assert first["success"] and second["success"] and "request_id" not in long_form
+    assert long_form["success"] is True and long_form["long_form"] is True and long_form["vad_segments"] >= 2
+    assert stats["stats"]["batch_dispatches"] == 1 and stats["stats"]["batched_requests"] == 2
     assert result["modules"] == []
     if not torch.cuda.is_available():
         assert "CUDA" in result["cuda_error"]

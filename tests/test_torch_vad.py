@@ -43,6 +43,26 @@ def test_probabilities_and_segments_match(vads, kind):
         assert port.speech_timestamps(audio)
 
 
+def test_long_audio_matches_the_reference_windowed_pass(vads):
+    """Past 32 s the reference cuts the audio into 16 s windows with a 2 s halo,
+    padded to a power of two (``_probabilities_longform``): a rule that bounds
+    XLA's compiled shapes. The port runs any length in one pass; on 43.5 s its
+    probabilities match the windowed pass and give the same segments."""
+    from light_whisper_tpu.audio import fbank as ref_fbank
+    from light_whisper_tpu.models.vad import api as ref_api
+
+    ref, port = vads
+    audio = np.concatenate([speechlike(20.0, seed=7), np.zeros(3 * 16000, np.float32), speechlike(20.5, seed=8)])
+    assert len(audio) > ref_api._LONGFORM_BATCH_MIN
+    frames = ref_fbank.num_frames(len(audio))
+    want = ref._probabilities_longform(audio, frames)
+    got = port.probabilities(audio)
+    assert got.shape == want.shape == (frames,)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    segments = port.speech_timestamps(audio)
+    assert segments == ref.speech_timestamps(audio, probs=want) and len(segments) >= 2
+
+
 def test_short_audio_has_no_frames(vads):
     assert vads[1].probabilities(np.zeros(100, np.float32)).shape == (0,)
 
