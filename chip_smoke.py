@@ -9,32 +9,41 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
 1. identify the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. build the kernels of ``light_whisper_tpu_torch/csrc`` with ``nvcc``;
 3. each kernel against its plain PyTorch version on the card, at Qwen3-ASR
-   0.6B shapes, with the tolerance stated on each line (integer-valued cases
-   bitwise) and kernel / plain times from CUDA events;
+   0.6B shapes (those of the single-pass path included: the encoder's 6,656
+   rows at the 512 s bucket, the 3,968-row prompt's projections, decode
+   attention over ~4,000 keys of an 8192-slot cache), with the tolerance
+   stated on each line (integer-valued cases
+   bitwise): kernel / plain times from CUDA events, the bound (the least time
+   the card could take for the case's bytes and operations) and, for the
+   attention kernels, one ``scaled_dot_product_attention`` call on the same
+   inputs as a yardstick (no single PyTorch call computes Q8_0 dequant-matmul);
 4. a narrow model (head dim 128, two query heads per KV head) transcribed on
-   the card and on the CPU (plain versions): logits and greedy tokens compared;
+   the card and on the CPU (plain versions): logits and greedy tokens
+   compared, then one prefill of 128 rows at KV capacity 8192 (flash-prefill
+   kernel on the card, ``attention_chunked`` on the CPU);
 5. a 0.6B-width Q8_0 GGUF with random weights from a seed, served by the
    port's engine server through the wire loop on in-memory pipes, driven
-   along three paths, each with the kernels' launch counts set to 0 just
+   along four paths, each with the kernels' launch counts set to 0 just
    before it and read just after:
    - slice: a 2 s and a 12 s speech-like request and silence, one at a time;
    - batch: four concurrent requests of 2-3 s, then four of 4-12 s, written
      at once so that the ones queued behind the first coalesce into one
-     batched prefill and decode; both new attention kernels must launch
-     here. Then, on the model and counted apart (``batch-model``),
-     ``transcribe_batch`` against per-stream ``transcribe`` on clips of one
-     bucket length, and decode ms/step and aggregate tokens/s at
-     B = 1, 2, 4, 8;
+     batched prefill and decode. Then, on the model and counted apart
+     (``batch-model``), ``transcribe_batch`` against per-stream
+     ``transcribe`` on clips of one bucket length, and decode ms/step and
+     aggregate tokens/s at B = 1, 2, 4, 8;
    - longform: one 156 s recording with no options (VAD over all of it,
      windows of at most 28 s, one batched decode);
+   - single-pass: one 300 s recording with ``"long_form": false``, decoded as
+     one context: a prompt of 3,968 rows against a KV cache of 8192 slots,
+     whose prefill attention is the flash-prefill kernel, once a layer;
 6. ``engine_cli serve`` in a subprocess: init, one transcribe, exit.
 
 Then the ``nvidia-smi`` line, a JSON line with one entry per kernel and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero without that line. No JAX is imported: the port reuses only the
-JAX-free modules of ``light_whisper_tpu`` (GGUF, config, tokenizer, wire
-server, scheduler, long-form windowing, VAD segmenter, speech-like test
-audio).
+non-zero without that line. Nothing of JAX and nothing of the JAX package
+``light_whisper_tpu`` is imported: the model's widths, its random tensors
+and the speech-like audio are built by the port and by this script.
 """
 
 from __future__ import annotations
@@ -52,6 +61,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 5
 CARD_TIMEOUT_S = 60
 TIE_BAND = 1e-3  # top-2 logit gap within which a greedy flip is a tie (docs/SERVING.md)
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
 
 
 class PhaseError(RuntimeError):
@@ -95,7 +107,9 @@ def phase_build():
     built = time.perf_counter() - t0
     srcs = [os.path.relpath(p, REPO) for p in _build.sources()]
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "Compiling entry function" in line:  # names the kernel of the lines after it
+            say(f"  ptxas: entry {line.split(chr(39))[1][:100]}")
+        elif "registers" in line or "spill" in line or "smem" in line:
             say(f"  ptxas: {line.strip()}")
     say(f"phase build: ok {srcs} -> {os.path.relpath(str(_build.build()), REPO)} in {built:.1f} s")
 
@@ -132,8 +146,59 @@ def _bf16_ulp(torch, ref):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def bound_ms(nbytes: float, flops: float):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the bf16 tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def q8_work(T, N, K, extra_bytes=0):
+    """Bytes and operations of a Q8_0 product: bf16 x [T, K], int8 quants and
+    bf16 scales [N, K/32], f32 out [T, N]."""
+    return T * K * 2 + N * K + N * (K // 32) * 2 + T * N * 4 + extra_bytes, 2 * T * N * K
+
+
+def attention_work(q, n_kv, streams):
+    """Bytes and operations of causal attention as this run's data needs them:
+    ``streams`` holds (first position, rows) of each cache; the live K/V rows
+    of each are read once, row t sees keys 0..first + t."""
+    rows, n_heads, hd = sum(r for _, r in streams), q.shape[-2], q.shape[-1]
+    live = sum(first + r for first, r in streams)
+    keys_seen = sum(r * first + r * (r + 1) // 2 for first, r in streams)
+    nbytes = q.numel() * q.element_size() + 2 * n_kv * live * hd * 2 + rows * n_heads * hd * 4
+    return nbytes, 4 * hd * n_heads * keys_seen
+
+
+def sdpa_rows(torch, q, start, capacity):
+    """A ``scaled_dot_product_attention`` call computing the rows' attention
+    (T rows at ``start``.., GQA, a boolean position mask over the whole
+    cache) on one layer's ``[Hkv, C, hd]`` K/V."""
+    T = q.shape[0]
+    qb = q.to(torch.bfloat16).transpose(0, 1)[None].contiguous()  # [1, Hq, T, hd]
+    mask = torch.arange(capacity, device=q.device)[None, :] <= (start + torch.arange(T, device=q.device))[:, None]
+
+    def call(k_layer, v_layer):
+        out = torch.nn.functional.scaled_dot_product_attention(qb, k_layer[None], v_layer[None], attn_mask=mask,
+                                                                enable_gqa=True)
+        return out[0].transpose(0, 1)  # [T, Hq, hd]
+
+    return call
+
+
+def zero_past(cache, live):
+    """``cache`` with its slots past each position zeroed, for the
+    ``scaled_dot_product_attention`` yardstick: on the 1e4 junk the kernels
+    are checked with there, SDPA's bf16 path (torch 2.11 on the H100) let it
+    through the mask into some streams (max|d| ~1e4). The live K/V, and so
+    the function and its work, are the same."""
+    return cache.masked_fill(~live, 0)
+
+
 def phase_kernels(torch):
     from light_whisper_tpu_torch.ops import decode_attention as da
+    from light_whisper_tpu_torch.ops import flash_prefill as fp
     from light_whisper_tpu_torch.ops import q8_matmul as q8
 
     dev = torch.device("cuda")
@@ -149,18 +214,27 @@ def phase_kernels(torch):
         s = (torch.rand((L, N, K // 32), generator=gen, device=dev) * 0.02 / 127 + 1e-4).to(torch.bfloat16)
         return q, s
 
-    def record(form, case, err, tol, ms, plain_ms, bitwise=False, ulp_case=False):
+    def record(form, case, err, tol, ms, plain_ms, bitwise=False, ulp_case=False, work=None, library=None):
         ok = err == 0 if bitwise else err <= tol
         tol_txt = "bitwise" if bitwise else f"tol={tol:.3g}"
         if ulp_case:
             ok, tol_txt = True, f"<= 1 bf16 ulp of max(|acc|,|out|) (+1e-3 max|acc| with norm) elementwise (worst {tol:.2f} ulp)"
-        say(f"  {form} {case}: max|d|={err:.3g} {tol_txt} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+        bound, bound_by = bound_ms(*work) if work else (None, None)
+        library_ms, library_err = library if library else (None, None)
+        extra = ""
+        if bound is not None:
+            extra += f" bound={bound:.4f} ms ({bound_by})"
+        if library_ms is not None:
+            extra += f" sdpa={library_ms:.4f} ms (sdpa max|d|={library_err:.3g})"
+        say(f"  {form} {case}: max|d|={err:.3g} {tol_txt} kernel={ms:.4f} ms plain={plain_ms:.4f} ms{extra} "
             f"{'ok' if ok else 'FAIL'}")
         require(ok, f"{form} {case}: max|d| {err} over {tol_txt}")
         results.setdefault(form, []).append(
-            {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": bound_by, "library_ms": library_ms})
 
-    def check(form, case, kernel_fn, plain_fn, calls, tol_rel=1e-4, tol_abs=None, ulp_of=None):
+    def check(form, case, kernel_fn, plain_fn, calls, tol_rel=1e-4, tol_abs=None, ulp_of=None, work=None,
+              library_fn=None):
         got = kernel_fn(0)
         want = plain_fn(0)
         torch.cuda.synchronize()
@@ -182,29 +256,40 @@ def phase_kernels(torch):
             tol = tol_abs
         else:
             tol = tol_rel * max(1.0, float(want.abs().max()))
+        library = None
+        if library_fn is not None:
+            # the yardstick computes the same function: a wrong mask would time another one
+            lib_err = float((library_fn(0).float() - want).abs().max())
+            require(lib_err <= 5e-2, f"{form} {case}: the sdpa yardstick differs by {lib_err:.3g} (tol 5e-2, bf16 out)")
+            library = (_time_ms(torch, library_fn, calls), lib_err)
         record(form, case, err, tol, _time_ms(torch, kernel_fn, calls), _time_ms(torch, plain_fn, calls),
-               ulp_case=ulp_of is not None)
+               ulp_case=ulp_of is not None, work=work, library=library)
 
-    # -- 2D: logits head at decode, encoder fc2 / conv_out at 12 s ----------
+    # -- 2D: logits head at decode; encoder at 12 s (156 rows) and at the
+    # single-pass request's 512 s bucket (6,656 rows) --------------------------
     for case, T, N, K in (("logits T=1 152576x1024", 1, 152576, 1024),
                           ("enc.fc2 T=156 896x3584", 156, 896, 3584),
-                          ("enc.conv_out T=156 896x7680", 156, 896, 7680)):
+                          ("enc.conv_out T=156 896x7680", 156, 896, 7680),
+                          ("enc.fc1 T=6656 3584x896", 6656, 3584, 896),
+                          ("enc.fc2 T=6656 896x3584", 6656, 896, 3584),
+                          ("enc.conv_out T=6656 896x7680", 6656, 896, 7680)):
         qw, sw = weights(1, N, K)
         x = randn(T, K).to(torch.bfloat16)
         check("q8_matmul", case, lambda i: q8.q8_matmul(x, qw[0], sw[0]),
-              lambda i: q8.q8_matmul_plain(x, qw[0], sw[0]), calls=8)
+              lambda i: q8.q8_matmul_plain(x, qw[0], sw[0]), calls=8, work=q8_work(T, N, K))
 
-    # -- stacked: decoder projections at prefill (28 layers, cycled) --------
+    # -- stacked: decoder projections at prefill (28 layers, cycled); 3,968
+    # rows is the single-pass request's prompt --------------------------------
     L = 28
     proj = {"qkv": (4096, 1024), "o": (1024, 2048), "gateup": (6144, 1024), "down": (1024, 3072)}
     stacks = {name: weights(L, N, K) for name, (N, K) in proj.items()}
-    for T in (64, 192):
+    for T in (64, 192, 3968):
         for name, (N, K) in proj.items():
             qw, sw = stacks[name]
             x = randn(T, K).to(torch.bfloat16)
             check("q8_matmul_stacked", f"{name} T={T} {N}x{K}",
                   lambda i: q8.q8_matmul_stacked(x, qw, sw, i % L),
-                  lambda i: q8.q8_matmul_plain(x, qw[i % L], sw[i % L]), calls=L)
+                  lambda i: q8.q8_matmul_plain(x, qw[i % L], sw[i % L]), calls=L, work=q8_work(T, N, K))
 
     # -- stacked-fused at decode (T=1) ---------------------------------------
     eps = 1e-6
@@ -219,12 +304,13 @@ def phase_kernels(torch):
         x = randn(T, K).to(torch.bfloat16)
         norm_w = (1.0 + randn(K, scale=0.1)) if with_norm else None
         res = randn(T, N).to(torch.bfloat16) if with_res else None
+        extra = (K * 4 if with_norm else 0) + (T * N * 2 if with_res else 0)
         check("q8_matmul_stacked_fused", f"{case} T={T} {N}x{K}",
               lambda i: q8.q8_matmul_stacked_fused(x, qw, sw, i % L, norm_w=norm_w, eps=eps, residual=res),
               lambda i: q8.q8_matmul_fused_plain(x, qw[i % L], sw[i % L], norm_w, eps, res),
               calls=L, tol_rel=1e-3 if with_norm else 0.0,
               ulp_of=(lambda i: q8.q8_matmul_fused_plain(x, qw[i % L], sw[i % L], norm_w, eps, None))
-              if with_res else None)
+              if with_res else None, work=q8_work(T, N, K, extra))
 
     # -- integer-valued cases: bitwise -------------------------------------------
     def int_case(T, N, K):
@@ -248,24 +334,41 @@ def phase_kernels(torch):
     record("q8_matmul_stacked_fused", "integer T=4 +residual", float((got - want).abs().max()), 0.0,
            0.0, 0.0, bitwise=True)
 
-    # -- decode attention: 0.6B heads, cache C=1024 ---------------------------
-    Hq, Hkv, hd, C = 16, 8, 128, 1024
-    kc = randn(L, Hkv, C, hd).to(torch.bfloat16)
-    vc = randn(L, Hkv, C, hd).to(torch.bfloat16)
-    for T, starts in ((1, (0, 200, 1023)), (64, (0, 150, 960))):
-        for start in starts:
-            qx = randn(T, Hq, hd, scale=3.0)
-            check("decode_attention", f"T={T} start={start} C={C}",
-                  lambda i: da.decode_attention(qx, kc, vc, start, i % L),
-                  lambda i: da.decode_attention_plain(qx, kc, vc, start, i % L),
-                  calls=L, tol_abs=5e-3)  # bf16 rounding of p
+    # -- decode attention: 0.6B heads, stacked caches --------------------------
+    Hq, Hkv, hd = 16, 8, 128
+
+    def stacked_cache(C):
+        return randn(L, Hkv, C, hd).to(torch.bfloat16), randn(L, Hkv, C, hd).to(torch.bfloat16)
+
+    def decode_case(T, start, kc, vc):
+        C = kc.shape[2]
+        qx = randn(T, Hq, hd, scale=3.0)
+        sdpa = sdpa_rows(torch, qx, start, C)
+        check("decode_attention", f"T={T} start={start} C={C}",
+              lambda i: da.decode_attention(qx, kc, vc, start, i % L),
+              lambda i: da.decode_attention_plain(qx, kc, vc, start, i % L),
+              calls=L, tol_abs=5e-3,  # bf16 rounding of p
+              work=attention_work(qx, Hkv, [(start, T)]),
+              library_fn=lambda i: sdpa(kc[i % L], vc[i % L]))
+
+    C = 1024
+    kc, vc = stacked_cache(C)
+    for T, start in ((1, 0), (1, 200), (1, 1023), (64, 0), (64, 150), (64, 960)):
+        decode_case(T, start, kc, vc)
     # one layer's [Hkv, C, hd] block: the batched prefill's per-stream attention
     for T, start in ((1, 511), (64, 0)):
         qx = randn(T, Hq, hd, scale=3.0)
+        sdpa = sdpa_rows(torch, qx, start, C)
         check("decode_attention_unstacked", f"T={T} start={start} C={C}",
               lambda i: da.decode_attention_unstacked(qx, kc[i % L], vc[i % L], start),
               lambda i: da.attention_plain(qx, kc[i % L], vc[i % L], start),
-              calls=L, tol_abs=5e-3)
+              calls=L, tol_abs=5e-3, work=attention_work(qx, Hkv, [(start, T)]),
+              library_fn=lambda i: sdpa(kc[i % L], vc[i % L]))
+    del kc, vc
+    # the single-pass decode: 447 steps after 3,968 prompt rows, at capacity 8192
+    kc, vc = stacked_cache(8192)
+    for start in (3968, 4414):
+        decode_case(1, start, kc, vc)
     del kc, vc
     # per-stream caches, junk past each stream's position (padded prompt tails)
     for B in (2, 8):
@@ -278,41 +381,124 @@ def phase_kernels(torch):
                 vb[b, :, :, p + 1:] = -1e4
             pos = torch.tensor(positions, dtype=torch.int32, device=dev)
             qx = randn(B, Hq, hd, scale=3.0)
+            qb = qx.to(torch.bfloat16)[:, :, None]  # [B, Hq, 1, hd]
+            bmask = (torch.arange(Cb, device=dev)[None, :] <= pos[:, None].long())[:, None, None]  # [B, 1, 1, C]
+            kz, vz = zero_past(kb, bmask[..., None]), zero_past(vb, bmask[..., None])  # [B, 1, 1, C, 1]
             check("decode_attention_batched", f"B={B} C={Cb} pos={positions}",
                   lambda i: da.decode_attention_batched(qx, kb, vb, pos, i % L, positions),
                   lambda i: da.decode_attention_batched_plain(qx, kb, vb, pos, i % L),
-                  calls=L, tol_abs=5e-3)
-            del kb, vb
+                  calls=L, tol_abs=5e-3, work=attention_work(qx, Hkv, [(p, 1) for p in positions]),
+                  library_fn=lambda i: torch.nn.functional.scaled_dot_product_attention(
+                      qb, kz[:, i % L], vz[:, i % L], attn_mask=bmask, enable_gqa=True)[:, :, 0])
+            del kb, vb, kz, vz
+
+    # -- flash prefill: prompts of more than 64 rows against caches of >= 8192 --
+    # layers cycled so that the live K/V of each call comes from HBM
+    Lf = 8
+    for T, start, Cf in ((3968, 0, 8192), (512, 32768 - 512, 32768), (65, 100, 8192)):
+        kf = randn(Lf, Hkv, Cf, hd).to(torch.bfloat16)
+        vf = randn(Lf, Hkv, Cf, hd).to(torch.bfloat16)
+        kf[:, :, start + T:] = 1e4  # junk past the last position must not leak in
+        vf[:, :, start + T:] = -1e4
+        qx = randn(T, Hq, hd, scale=3.0).to(torch.bfloat16)
+        sdpa = sdpa_rows(torch, qx, start, Cf)
+        live = (torch.arange(Cf, device=dev) < start + T)[:, None]
+        kz, vz = zero_past(kf, live), zero_past(vf, live)
+        check("flash_prefill", f"T={T} start={start} C={Cf}",
+              lambda i: fp.flash_prefill(qx, kf[i % Lf], vf[i % Lf], start),
+              lambda i: fp.flash_prefill_plain(qx, kf[i % Lf], vf[i % Lf], start),  # the kernel's key tile
+              calls=Lf, tol_abs=5e-3, work=attention_work(qx, Hkv, [(start, T)]),
+              library_fn=lambda i: sdpa(kz[i % Lf], vz[i % Lf]))
+        del kf, vf, kz, vz
     n_cases = sum(len(v) for v in results.values())
     say(f"phase kernels: ok {n_cases} cases")
     return results
 
 
 # ---------------------------------------------------------------------------
-# phase 4: narrow model on the card vs the CPU
+# model artifacts: Qwen3-ASR 0.6B widths and random tensors from a seed
 
 
-def _write_model(path: str, cfg, seed: int, template: str) -> None:
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from helpers.tiny_model import tiny_tensors
+def qwen3_asr_06b_config():
+    """Qwen3-ASR 0.6B: a Qwen3-0.6B decoder and the AuT audio encoder."""
+    from light_whisper_tpu_torch.models.qwen3_asr.config import AudioEncoderConfig, DecoderConfig, Qwen3ASRConfig
 
-    from light_whisper_tpu.models.qwen3_asr.export import write_model
+    dec = DecoderConfig(vocab_size=151_936, embedding_length=1024, block_count=28, feed_forward_length=3072,
+                        head_count=16, head_count_kv=8, key_length=128, context_length=32_768)
+    enc = AudioEncoderConfig(num_mel_bins=128, d_model=896, block_count=18, head_count=14,
+                             feed_forward_length=3584, downsample_hidden_size=480,
+                             output_dim=dec.embedding_length, n_window=50, n_window_infer=400,
+                             max_source_positions=3000)
+    return Qwen3ASRConfig(audio=enc, decoder=dec, audio_token_id=151_676)
 
-    tokens, types = _vocab(cfg)
-    meta = {
-        "tokenizer.ggml.tokens": tokens,
-        "tokenizer.ggml.token_type": types,
-        "tokenizer.ggml.merges": [],
-        "tokenizer.chat_template": template,
+
+def random_tensors(cfg, seed: int):
+    """Every tensor of a Qwen3-ASR artifact, (out, in)-oriented, random from
+    ``seed``: matrices N(0, 1/in), embeddings N(0, 0.05^2), unit norms, zero
+    biases. The draw order is part of the artifact: a seed names its bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, a = cfg.decoder, cfg.audio
+
+    def mat(out_f, in_f, scale=None):
+        scale = scale if scale is not None else (1.0 / np.sqrt(in_f))
+        return (rng.standard_normal((out_f, in_f)) * scale).astype(np.float32)
+
+    tensors = {
+        "token_embd.weight": mat(d.vocab_size, d.embedding_length, 0.05),
+        "output_norm.weight": np.ones(d.embedding_length, np.float32)
+        + rng.standard_normal(d.embedding_length).astype(np.float32) * 0.02,
     }
-    tmp = path + ".tmp"
-    write_model(tmp, cfg, tiny_tensors(cfg, seed=seed), meta, quantize=True)
-    os.replace(tmp, path)
+    for i in range(d.block_count):
+        p = f"blk.{i}."
+        qdim = d.head_count * d.key_length
+        kvdim = d.head_count_kv * d.key_length
+        tensors[p + "attn_norm.weight"] = np.ones(d.embedding_length, np.float32)
+        tensors[p + "attn_q.weight"] = mat(qdim, d.embedding_length)
+        tensors[p + "attn_k.weight"] = mat(kvdim, d.embedding_length)
+        tensors[p + "attn_v.weight"] = mat(kvdim, d.embedding_length)
+        tensors[p + "attn_output.weight"] = mat(d.embedding_length, qdim)
+        tensors[p + "attn_q_norm.weight"] = np.ones(d.key_length, np.float32)
+        tensors[p + "attn_k_norm.weight"] = np.ones(d.key_length, np.float32)
+        tensors[p + "ffn_norm.weight"] = np.ones(d.embedding_length, np.float32)
+        tensors[p + "ffn_gate.weight"] = mat(d.feed_forward_length, d.embedding_length)
+        tensors[p + "ffn_up.weight"] = mat(d.feed_forward_length, d.embedding_length)
+        tensors[p + "ffn_down.weight"] = mat(d.embedding_length, d.feed_forward_length)
+
+    h = a.downsample_hidden_size
+    tensors["aenc.conv1.weight"] = (rng.standard_normal((h, 1, 3, 3)) * 0.2).astype(np.float32)
+    tensors["aenc.conv1.bias"] = np.zeros(h, np.float32)
+    tensors["aenc.conv2.weight"] = (rng.standard_normal((h, h, 3, 3)) * (0.2 / np.sqrt(h))).astype(np.float32)
+    tensors["aenc.conv2.bias"] = np.zeros(h, np.float32)
+    tensors["aenc.conv3.weight"] = (rng.standard_normal((h, h, 3, 3)) * (0.2 / np.sqrt(h))).astype(np.float32)
+    tensors["aenc.conv3.bias"] = np.zeros(h, np.float32)
+    tensors["aenc.conv_out.weight"] = mat(a.d_model, h * a.freq_after_conv)
+    for i in range(a.block_count):
+        p = f"aenc.blk.{i}."
+        tensors[p + "attn_norm.weight"] = np.ones(a.d_model, np.float32)
+        tensors[p + "attn_norm.bias"] = np.zeros(a.d_model, np.float32)
+        for name in ("attn_q", "attn_k", "attn_v", "attn_output"):
+            tensors[p + name + ".weight"] = mat(a.d_model, a.d_model)
+            tensors[p + name + ".bias"] = np.zeros(a.d_model, np.float32)
+        tensors[p + "ffn_norm.weight"] = np.ones(a.d_model, np.float32)
+        tensors[p + "ffn_norm.bias"] = np.zeros(a.d_model, np.float32)
+        tensors[p + "ffn_up.weight"] = mat(a.feed_forward_length, a.d_model)
+        tensors[p + "ffn_up.bias"] = np.zeros(a.feed_forward_length, np.float32)
+        tensors[p + "ffn_down.weight"] = mat(a.d_model, a.feed_forward_length)
+        tensors[p + "ffn_down.bias"] = np.zeros(a.d_model, np.float32)
+    tensors["aenc.ln_post.weight"] = np.ones(a.d_model, np.float32)
+    tensors["aenc.ln_post.bias"] = np.zeros(a.d_model, np.float32)
+    tensors["aenc.proj1.weight"] = mat(a.d_model, a.d_model)
+    tensors["aenc.proj1.bias"] = np.zeros(a.d_model, np.float32)
+    tensors["aenc.proj2.weight"] = mat(a.output_dim, a.d_model)
+    tensors["aenc.proj2.bias"] = np.zeros(a.output_dim, np.float32)
+    return tensors
 
 
 def _vocab(cfg):
     """Byte tokens, filler pieces, and the specials at the config's ids."""
-    from light_whisper_tpu.models.qwen3_asr.tokenizer import byte_to_unicode
+    from light_whisper_tpu_torch.models.qwen3_asr.tokenizer import byte_to_unicode
 
     b2u = byte_to_unicode()
     n = cfg.decoder.vocab_size
@@ -328,10 +514,32 @@ def _vocab(cfg):
 TEMPLATE = "<|im_start|>user\n{audio}<|im_end|>\n<|im_start|>assistant\n"
 
 
+def write_model(path: str, cfg, seed: int, template: str = TEMPLATE) -> None:
+    """A Q8_0 GGUF of ``random_tensors(cfg, seed)`` through the port's export."""
+    from light_whisper_tpu_torch.models.qwen3_asr.export import write_model as export
+
+    tokens, types = _vocab(cfg)
+    meta = {
+        "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.token_type": types,
+        "tokenizer.ggml.merges": [],
+        "tokenizer.chat_template": template,
+    }
+    tmp = path + ".tmp"
+    export(tmp, cfg, random_tensors(cfg, seed), meta, quantize=True)
+    os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: narrow model on the card vs the CPU
+
+
 def phase_narrow(torch):
-    from light_whisper_tpu.eval.speechlike import speechlike
-    from light_whisper_tpu.models.qwen3_asr.config import AudioEncoderConfig, DecoderConfig, Qwen3ASRConfig
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+    from light_whisper_tpu_torch.models.qwen3_asr.config import AudioEncoderConfig, DecoderConfig, Qwen3ASRConfig
     from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
+    from light_whisper_tpu_torch.ops import flash_prefill as fp
 
     vocab = 1024
     cfg = Qwen3ASRConfig(
@@ -340,13 +548,13 @@ def phase_narrow(torch):
                                  max_source_positions=200),
         decoder=DecoderConfig(vocab_size=vocab, embedding_length=256, block_count=3,
                               feed_forward_length=512, head_count=4, head_count_kv=2, key_length=128,
-                              context_length=4096),
+                              context_length=32_768),
         audio_token_id=vocab - 4, bos_token_id=vocab - 3, eos_token_id=vocab - 2, pad_token_id=vocab - 1,
     )
     path = os.path.join(REPO, "build", "chip_smoke", f"narrow-seed{SEED}.gguf")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     if not os.path.isfile(path):
-        _write_model(path, cfg, SEED, TEMPLATE)
+        write_model(path, cfg, SEED)
     audio = speechlike(2.0, seed=SEED)
     steps = 12
     gpu = Qwen3ASRModel(path, device="cuda", max_new_tokens=steps)
@@ -369,7 +577,36 @@ def phase_narrow(torch):
     require(all(gap <= 1e-2 for _step, gap in flips), f"argmax flips outside the tie band: {flips}")
     got_tokens = gpu.transcribe(audio).tokens
     require(got_tokens == ref_tokens or bool(flips), f"card greedy {got_tokens} != CPU {ref_tokens}")
-    say("phase narrow: ok (card vs CPU plain versions, d_model 256, hd 128, G 2)")
+
+    # one prefill of more than 64 rows at capacity 8192: the flash-prefill
+    # kernel on the card, attention_chunked on the CPU
+    long_audio = speechlike(6.0, seed=SEED + 2)
+    logits = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        request = model._prepare(long_audio)
+        rows = len(request[2])
+        route = dec._attention_route(dec.torch_dtype(cfg.decoder.compute_dtype), rows, 8192, model.device.type)
+        require(rows > 64 and route == ("flash_prefill" if name == "card" else "attention_chunked"),
+                f"{name}: {rows} prompt rows at capacity 8192 take {route}")
+        cache = dec.init_cache(cfg.decoder, 8192, model.cache_dtype, model.device)
+        before = fp.LAUNCHES["flash_prefill"]
+        logits[name] = model._encode_and_prefill(*request, cache).float().cpu()[: cfg.decoder.vocab_size]
+        torch.cuda.synchronize()
+        launched = fp.LAUNCHES["flash_prefill"] - before
+        require(launched == (cfg.decoder.block_count if name == "card" else 0),
+                f"{name}: flash_prefill launched {launched} times over {cfg.decoder.block_count} layers")
+    r, g = logits["cpu"], logits["card"]
+    require(bool(torch.isfinite(g).all()), "non-finite logits after the 8192-slot prefill")
+    rel = float((r - g).abs().max()) / max(1.0, float(r.abs().max()))
+    first_cpu, first_card = int(torch.argmax(r)), int(torch.argmax(g))
+    top2 = torch.topk(r, 2).values
+    gap = float(top2[0] - top2[1])
+    say(f"  narrow prefill at C=8192 ({rows} rows): max|dlogit|/max|logit| = {rel:.3g}; first token "
+        f"card {first_card} CPU {first_cpu} (CPU top-2 gap {gap:.3g})")
+    require(rel <= 2e-2, f"8192-slot prefill logits differ by {rel:.3g} (tol 2e-2 of max|logit|)")
+    require(first_card == first_cpu or gap <= TIE_BAND,
+            f"first token {first_card} != {first_cpu} with top-2 gap {gap:.3g} over {TIE_BAND}")
+    say("phase narrow: ok (card vs CPU plain versions, d_model 256, hd 128, G 2; prefill at C=8192)")
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +624,7 @@ class PipeClient:
     """The wire loop of ``engine_cli serve`` on a thread, over in-memory pipes."""
 
     def __init__(self, hooks):
-        from light_whisper_tpu.runtime.server import EngineServer
+        from light_whisper_tpu_torch.runtime.server import EngineServer
 
         r_in, w_in = os.pipe()
         r_out, w_out = os.pipe()
@@ -428,22 +665,23 @@ class PipeClient:
 
 
 def _flagship_path():
-    import __graft_entry__ as graft
-
-    cfg = graft._flagship_config("0.6b")
+    cfg = qwen3_asr_06b_config()
     path = os.path.join(REPO, "build", "chip_smoke", f"qwen3-asr-0.6b-seed{SEED}.gguf")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     if not os.path.isfile(path):
         t0 = time.perf_counter()
-        _write_model(path, cfg, SEED, TEMPLATE)
+        write_model(path, cfg, SEED)
         say(f"  built {os.path.relpath(path, REPO)} ({os.path.getsize(path) / 2**20:.0f} MiB) "
             f"in {time.perf_counter() - t0:.1f} s")
     return path, cfg
 
 
-def _transcribe_cmd(rid: int, audio) -> dict:
-    return {"action": "transcribe", "request_id": rid, "audio_base64": _pcm_b64(audio),
-            "audio_format": "pcm_s16le", "sample_rate": 16000}
+def _transcribe_cmd(rid: int, audio, **options) -> dict:
+    cmd = {"action": "transcribe", "request_id": rid, "audio_base64": _pcm_b64(audio),
+           "audio_format": "pcm_s16le", "sample_rate": 16000}
+    if options:
+        cmd["options"] = options
+    return cmd
 
 
 def _median_ms(seconds) -> float:
@@ -475,7 +713,6 @@ class Launches:
 def start_server():
     from light_whisper_tpu_torch.runtime.qwen3_server import Qwen3EngineServer
 
-    os.environ["LIGHT_WHISPER_DISABLE_SESSION_REUSE"] = "1"
     path, cfg = _flagship_path()
     engine = Qwen3EngineServer(engine="qwen3-asr-0.6b", device="cuda", model_path=path)
     client = PipeClient(engine.hooks())
@@ -489,7 +726,7 @@ def start_server():
 def phase_slice(torch, engine, client, cfg, launches: Launches):
     import numpy as np
 
-    from light_whisper_tpu.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
 
     launches.start()
     requests = (("speech 2 s", speechlike(2.0, seed=SEED), True),
@@ -511,7 +748,7 @@ def phase_slice(torch, engine, client, cfg, launches: Launches):
         else:
             require(reply.get("vad_segments") == 0, f"{name}: expected no VAD segment: {reply}")
             say(f"  {name}: vad_segments=0 vad_ms={reply['vad_ms']}")
-    launches.read("slice", [name for name, *_ in KERNELS[:4]])
+    launches.read("slice", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused", "decode_attention"])
 
     # the served model's prefill logits are finite and of the padded vocab width
     logits = engine.model.teacher_forced_logits(speechlike(2.0, seed=SEED), [1, 2])
@@ -556,7 +793,7 @@ def _first_divergence(model, clip, solo, batched) -> str:
 
 
 def phase_batch(torch, engine, client, launches: Launches):
-    from light_whisper_tpu.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
 
     model = engine.model
     launches.start()
@@ -566,8 +803,9 @@ def phase_batch(torch, engine, client, launches: Launches):
                                               for i, s in enumerate((2.0, 2.5, 3.0, 2.2))], 100)
     _coalesced_round(client, "round 4-12 s", [speechlike(s, seed=SEED + 40 + i)
                                                for i, s in enumerate((12.0, 4.0, 6.5, 9.0))], 200)
-    # the wire rounds alone must reach both new kernels and the Q8 forms
-    launches.read("batch", [name for name, *_ in KERNELS if name != "decode_attention"])
+    # the wire rounds alone must reach both batched attention kernels and the Q8 forms
+    launches.read("batch", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
+                            "decode_attention_unstacked", "decode_attention_batched"])
 
     # model-level checks and the B sweep, counted apart from the wire path
     launches.start()
@@ -601,8 +839,8 @@ def phase_batch(torch, engine, client, launches: Launches):
 def phase_longform(torch, client, launches: Launches):
     import numpy as np
 
-    from light_whisper_tpu.eval.speechlike import speechlike
-    from light_whisper_tpu.serving.longform import DEFAULT_MAX_WINDOW_SECONDS, DEFAULT_PAD_SECONDS
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.serving.longform import DEFAULT_MAX_WINDOW_SECONDS, DEFAULT_PAD_SECONDS
 
     pause = np.zeros(int(0.8 * 16000), np.float32)
     pieces = []
@@ -630,11 +868,54 @@ def phase_longform(torch, client, launches: Launches):
     say(f"phase longform: ok ({len(windows)} windows, max {max(windows)} s)")
 
 
+def phase_single_pass(torch, engine, client, cfg, launches: Launches):
+    """A 300 s recording decoded as one context (``long_form: false``)."""
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+
+    recording = speechlike(300.0, seed=SEED + 90)
+    launches.start()
+    t0 = time.perf_counter()
+    reply = client.call(_transcribe_cmd(400, recording, long_form=False))
+    wall = time.perf_counter() - t0
+    require(reply.get("success") is True, f"single-pass: {reply}")
+    steps = engine.model.last_decode_step_s
+    say(f"  {len(recording) / 16000:.1f} s recording, long_form false: vad_segments={reply.get('vad_segments')} "
+        f"speech_duration={reply.get('speech_duration')} vad_ms={reply.get('vad_ms')} "
+        f"inference_ms={reply.get('inference_ms')} decode_steps={len(steps)} "
+        f"median_step_ms={_median_ms(steps):.3f} wall {wall:.3f} s text_chars={len(reply.get('text', ''))}")
+    require(not any(key.startswith("long_form") for key in reply), f"single-pass reply has long-form keys: {reply}")
+    require(reply.get("vad_segments", 0) >= 1, f"single-pass: no VAD segment: {reply}")
+    got = launches.read("single-pass", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
+                                        "decode_attention", "flash_prefill"])
+    layers = cfg.decoder.block_count
+    require(got["flash_prefill"] == layers,
+            f"flash_prefill launched {got['flash_prefill']} times; one prefill takes {layers}, one a layer")
+    # the request's split, read on the model after the wire path: log-mel + encoder + prefill
+    # of the same recording (a second run: the first one's allocations are warm)
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+
+    model = engine.model
+    prefill_ms = []
+    for _ in range(2):
+        request = model._prepare(recording)
+        cache = dec.init_cache(cfg.decoder, 8192, model.cache_dtype, model.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._encode_and_prefill(*request, cache)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1000)
+        del cache
+    say(f"  single-pass split: {len(request[2])} prompt rows; log-mel + encoder + prefill {prefill_ms[-1]:.3f} ms "
+        f"(first {prefill_ms[0]:.3f} ms); decode {len(steps)} steps x {_median_ms(steps):.3f} ms median")
+    say(f"phase single-pass: ok (one prefill at KV capacity 8192, flash_prefill x{layers}, "
+        f"decode {_median_ms(steps):.3f} ms/step median)")
+
+
 def phase_profile(torch, model, out_dir: str, steps: int = 32):
     """torch.profiler over a 12 s transcribe and a B = 8 ``transcribe_batch`` of
     3 s clips, each cut to ``steps`` decode steps: device time by kernel, and
     the device's busy share of the wall."""
-    from light_whisper_tpu.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
 
     workloads = (("12s", "12 s transcribe", lambda: model.transcribe(speechlike(12.0, seed=SEED + 1))),
                  ("batch8", "B=8 transcribe_batch of 3 s clips",
@@ -671,10 +952,9 @@ def phase_profile(torch, model, out_dir: str, steps: int = 32):
 
 
 def phase_cli(model_path: str):
-    from light_whisper_tpu.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
 
     env = dict(os.environ, LIGHT_WHISPER_MODEL_PATH=model_path,
-               LIGHT_WHISPER_DISABLE_SESSION_REUSE="1",
                LIGHT_WHISPER_DATA_DIR=os.path.join(REPO, "build", "chip_smoke", "data"),
                PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
     cmd = [sys.executable, "-m", "light_whisper_tpu_torch.runtime.engine_cli", "serve",
@@ -683,9 +963,7 @@ def phase_cli(model_path: str):
     proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, cwd=REPO)
     try:
-        lines = [json.dumps({"action": "transcribe", "request_id": 1,
-                             "audio_base64": _pcm_b64(speechlike(2.0, seed=SEED)),
-                             "audio_format": "pcm_s16le", "sample_rate": 16000}),
+        lines = [json.dumps(_transcribe_cmd(1, speechlike(2.0, seed=SEED))),
                  json.dumps({"action": "exit", "request_id": 2})]
         out, err = proc.communicate("\n".join(lines) + "\n", timeout=600)
     finally:
@@ -705,7 +983,7 @@ def phase_cli(model_path: str):
 
 # ---------------------------------------------------------------------------
 
-WIRE_PATHS = ("slice", "batch", "longform")  # the main paths, driven through EngineServer
+WIRE_PATHS = ("slice", "batch", "longform", "single-pass")  # the main paths, driven through EngineServer
 KERNELS = (
     ("q8_matmul", "light_whisper_tpu_torch/csrc/q8_matmul.cu", "light_whisper_tpu/ops/q8_matmul.py:164",
      "logits T=1 152576x1024"),
@@ -719,7 +997,14 @@ KERNELS = (
      "light_whisper_tpu/ops/decode_attention.py:56", "T=64 start=0 C=1024"),
     ("decode_attention_batched", "light_whisper_tpu_torch/csrc/decode_attention.cu",
      "light_whisper_tpu/ops/decode_attention.py:215", "B=8 C=1024"),
+    ("flash_prefill", "light_whisper_tpu_torch/csrc/flash_prefill.cu",
+     "light_whisper_tpu/ops/flash_prefill.py:97", "T=3968 start=0 C=8192"),
 )
+
+
+def _no_reference_modules() -> list:
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "light_whisper_tpu", "__graft_entry__", "helpers"))
 
 
 def main(argv=None) -> int:
@@ -748,13 +1033,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from light_whisper_tpu_torch.ops import decode_attention as da
+    from light_whisper_tpu_torch.ops import flash_prefill as fp
     from light_whisper_tpu_torch.ops import q8_matmul as q8
 
     try:
         card = phase_identify(torch)
         phase_build()
         results = phase_kernels(torch)
-        launches = Launches(torch, [q8.LAUNCHES, da.LAUNCHES])
+        launches = Launches(torch, [q8.LAUNCHES, da.LAUNCHES, fp.LAUNCHES])
         if not args.kernels_only:
             phase_narrow(torch)
             engine, client, model_path, cfg = start_server()
@@ -762,6 +1048,7 @@ def main(argv=None) -> int:
                 phase_slice(torch, engine, client, cfg, launches)
                 phase_batch(torch, engine, client, launches)
                 phase_longform(torch, client, launches)
+                phase_single_pass(torch, engine, client, cfg, launches)
                 if args.profile:
                     phase_profile(torch, engine.model, args.profile)
                 bye = client.call({"action": "exit", "request_id": 999})
@@ -771,7 +1058,7 @@ def main(argv=None) -> int:
             del engine
             phase_cli(model_path)
         torch.cuda.synchronize()
-        require("jax" not in sys.modules, "jax was imported")
+        require(not _no_reference_modules(), f"imported: {_no_reference_modules()}")
     except PhaseError as exc:
         say(f"phase FAIL: {exc}")
         return 1
@@ -780,10 +1067,12 @@ def main(argv=None) -> int:
     for name, source, replaces, case in KERNELS:
         row = next(r for r in results[name] if r["case"].startswith(case))
         # launches: summed over the wire paths, each counted from 0; the
-        # kernel-vs-plain checks and the model-level batch checks are not counted
+        # kernel-vs-plain checks and the model-level checks are not counted
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(launches.by_path.get(path, {}).get(name, 0) for path in WIRE_PATHS),
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"]})
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
     say(card)
     say(json.dumps({"kernels": kernels}))
     if args.kernels_only:

@@ -25,11 +25,15 @@ Routing follows the reference's fused-decode flow (``_layer_forward_stacked``):
   epilogue run inside the Q8 kernel (``q8_matmul_stacked_fused``);
 - more rows: the unfused stacked kernel, with ``rms_norm`` and the residual
   add in torch;
-- attention of 1 <= T <= 64 bf16 rows goes through the decode-attention
-  kernel (stacked for one stream, unstacked per stream in the batched
-  prefill); longer prompts (and f32 precise compute) take the plain masked
-  softmax. The reference's chunked attention for caches of 8192 and more is
-  not ported yet.
+- attention (:func:`_attention_route`, the reference's ``_attention``):
+  1 <= T <= 64 bf16 rows go through the decode-attention kernel (stacked for
+  one stream, unstacked per stream in the batched prefill); more rows against
+  a cache of 8192 slots or more (a multiple of 1024) take an online softmax
+  over key blocks, as the reference does there: the flash-prefill kernel for
+  bf16 on the card, :func:`attention_chunked` otherwise (the CPU, or f32
+  precise compute); everything else takes the plain masked softmax, which
+  holds ``[Hkv, G, T, C]`` f32 logits. The reference's ``LWT_FLASH_PREFILL``
+  opt-in exists for its TPU compiler and is not ported.
 
 Numerics match the reference's unfused path, which its fused kernels are
 built to reproduce bit for bit.
@@ -43,7 +47,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from light_whisper_tpu.models.qwen3_asr.config import DecoderConfig
+from light_whisper_tpu_torch.models.qwen3_asr.config import DecoderConfig
 from light_whisper_tpu_torch.ops.decode_attention import (
     MAX_ROWS as ATTENTION_KERNEL_MAX_ROWS,
     NEG_INF,
@@ -53,6 +57,7 @@ from light_whisper_tpu_torch.ops.decode_attention import (
     decode_attention_batched_plain,
     decode_attention_unstacked,
 )
+from light_whisper_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
 from light_whisper_tpu_torch.ops.linear import apply_linear, dense_matmul
 from light_whisper_tpu_torch.ops.q8_matmul import (
     FUSED_MAX_ROWS,
@@ -63,6 +68,11 @@ from light_whisper_tpu_torch.ops.q8_matmul import (
 )
 
 _PROJ_NAMES = ("qkv", "o", "gateup", "down")
+# From this capacity on, prefill attention runs an online softmax over key
+# blocks: the one-shot softmax would hold [Hkv, G, T, C] f32 logits (2.1 GB a
+# layer at T = 3,968, C = 8192 and 0.6B heads).
+CHUNKED_PREFILL_MIN_CAPACITY = 8192
+PREFILL_KEY_CHUNK = 1024  # the reference's _attention_chunked key chunk
 
 
 def torch_dtype(compute_dtype: str) -> torch.dtype:
@@ -146,23 +156,57 @@ def _split_qkv(cfg: DecoderConfig, qkv: torch.Tensor, T: int):
     return q, k, v
 
 
-def _attention(cfg: DecoderConfig, q: torch.Tensor, cache: KVCache, idx: int, start: int) -> torch.Tensor:
-    T = q.shape[0]
-    dtype = torch_dtype(cfg.compute_dtype)
+def attention_chunked(
+    q: torch.Tensor,  # [T, Hq, hd]
+    k_layer: torch.Tensor,  # [Hkv, C, hd]
+    v_layer: torch.Tensor,
+    start: int,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The reference's ``_attention_chunked``: the online softmax of
+    :func:`flash_prefill_plain` over key chunks of 1024, ``dtype`` operands
+    (bf16, or f32 in precise mode). Returns f32 ``[T, Hq, hd]``."""
+    return flash_prefill_plain(q, k_layer, v_layer, start, block_c=PREFILL_KEY_CHUNK, dtype=dtype)
+
+
+def _attention_route(dtype: torch.dtype, T: int, capacity: int, device_type: str) -> str:
+    """Which attention serves T query rows against a cache of ``capacity``
+    (the reference's ``_attention``, without its TPU gates)."""
     if dtype == torch.bfloat16 and 1 <= T <= ATTENTION_KERNEL_MAX_ROWS:
+        return "decode_attention"
+    if T > 1 and capacity >= CHUNKED_PREFILL_MIN_CAPACITY and capacity % PREFILL_KEY_CHUNK == 0:
+        return "flash_prefill" if dtype == torch.bfloat16 and device_type == "cuda" else "attention_chunked"
+    return "attention_plain"
+
+
+def _attend_rows(route: str, dtype: torch.dtype, q: torch.Tensor, k_layer: torch.Tensor,
+                 v_layer: torch.Tensor, start: int) -> torch.Tensor:
+    """Attention of ``q`` against one layer's ``[Hkv, C, hd]`` cache on every
+    route of :func:`_attention_route` but the decode-attention kernel."""
+    if route == "flash_prefill":
+        return flash_prefill(q, k_layer, v_layer, start)
+    if route == "attention_chunked":
+        return attention_chunked(q, k_layer, v_layer, start, dtype)
+    return attention_plain(q, k_layer, v_layer, start, dtype)
+
+
+def _attention(cfg: DecoderConfig, q: torch.Tensor, cache: KVCache, idx: int, start: int) -> torch.Tensor:
+    dtype = torch_dtype(cfg.compute_dtype)
+    route = _attention_route(dtype, q.shape[0], cache.k.shape[2], q.device.type)
+    if route == "decode_attention":
         return decode_attention(q, cache.k, cache.v, start, idx)
-    return attention_plain(q, cache.k[idx], cache.v[idx], start, dtype)
+    return _attend_rows(route, dtype, q, cache.k[idx], cache.v[idx], start)
 
 
 def _attention_unstacked(cfg: DecoderConfig, q: torch.Tensor, k_layer: torch.Tensor,
                          v_layer: torch.Tensor, start: int) -> torch.Tensor:
     """:func:`_attention` on one layer's ``[Hkv, C, hd]`` cache (the reference's
     ``_attention``, as the batched prefill calls it for each stream)."""
-    T = q.shape[0]
     dtype = torch_dtype(cfg.compute_dtype)
-    if dtype == torch.bfloat16 and 1 <= T <= ATTENTION_KERNEL_MAX_ROWS:
+    route = _attention_route(dtype, q.shape[0], k_layer.shape[1], q.device.type)
+    if route == "decode_attention":
         return decode_attention_unstacked(q, k_layer, v_layer, start)
-    return attention_plain(q, k_layer, v_layer, start, dtype)
+    return _attend_rows(route, dtype, q, k_layer, v_layer, start)
 
 
 def _attention_decode_batch(cfg: DecoderConfig, q: torch.Tensor, cache: BatchKVCache, idx: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from light_whisper_tpu.models.qwen3_asr.config import AudioEncoderConfig, conv_output_length
+from light_whisper_tpu_torch.models.qwen3_asr.config import AudioEncoderConfig, conv_output_length
 from light_whisper_tpu_torch.models.qwen3_asr.decoder import torch_dtype
 from light_whisper_tpu_torch.ops.decode_attention import NEG_INF
 from light_whisper_tpu_torch.ops.linear import apply_linear

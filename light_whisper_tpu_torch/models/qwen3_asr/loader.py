@@ -20,10 +20,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from light_whisper_tpu.formats import gguf
-from light_whisper_tpu.models.qwen3_asr import names as _names
-from light_whisper_tpu.models.qwen3_asr.config import Qwen3ASRConfig, config_from_metadata
-from light_whisper_tpu.models.qwen3_asr.tokenizer import BPETokenizer, tokenizer_from_metadata
+from light_whisper_tpu_torch.formats import gguf
+from light_whisper_tpu_torch.models.qwen3_asr import names as _names
+from light_whisper_tpu_torch.models.qwen3_asr.config import Qwen3ASRConfig, config_from_metadata
+from light_whisper_tpu_torch.models.qwen3_asr.tokenizer import BPETokenizer, tokenizer_from_metadata
 from light_whisper_tpu_torch.models.qwen3_asr.encoder import sinusoid_positions
 
 VOCAB_PAD_MULTIPLE = 1024

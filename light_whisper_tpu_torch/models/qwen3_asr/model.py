@@ -32,8 +32,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from light_whisper_tpu.models.qwen3_asr.config import Qwen3ASRConfig, conv_output_length
-from light_whisper_tpu.models.qwen3_asr.prompt import resolve_prompt_ids
+from light_whisper_tpu_torch.models.qwen3_asr.config import Qwen3ASRConfig, conv_output_length
+from light_whisper_tpu_torch.models.qwen3_asr.prompt import resolve_prompt_ids
 from light_whisper_tpu_torch.audio import mel as wmel
 from light_whisper_tpu_torch.audio.mel import SAMPLE_RATE
 from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec

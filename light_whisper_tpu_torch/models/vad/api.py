@@ -2,8 +2,9 @@
 
 Same surface the engine server calls: ``probabilities`` / ``warmup`` /
 ``speech_timestamps`` on 16 kHz float32 PCM. fbank, CMVN and the DFSMN run
-on ``device``; segmentation runs on the host through the reference's
-``segmenter`` (or its native C++ twin). Lengths are not padded to buckets.
+on ``device``; segmentation runs on the host (``segmenter.speech_segments``).
+Lengths are not padded to buckets. The reference's native C++ segmenter has
+the same semantics as ``speech_segments`` and is not ported.
 """
 
 from __future__ import annotations
@@ -14,14 +15,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-import light_whisper_tpu.models.vad as _reference_vad
-from light_whisper_tpu.formats import gguf
-from light_whisper_tpu.models.vad.segmenter import SegmenterOptions, speech_segments
 from light_whisper_tpu_torch.audio import fbank as kfb
 from light_whisper_tpu_torch.audio.fbank import SAMPLE_RATE
+from light_whisper_tpu_torch.formats import gguf
 from light_whisper_tpu_torch.models.vad import dfsmn
+from light_whisper_tpu_torch.models.vad.segmenter import SegmenterOptions, speech_segments
 
-BUNDLED_WEIGHTS = os.path.join(os.path.dirname(_reference_vad.__file__), "fireredvad.gguf")
+BUNDLED_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fireredvad.gguf")
 
 
 class FireRedVad:
@@ -79,18 +79,4 @@ class FireRedVad:
         samples = np.asarray(audio, dtype=np.float32).reshape(-1)
         if probs is None:
             probs = self.probabilities(samples)
-        from light_whisper_tpu.native import binding
-
-        if binding.available():  # native hysteresis segmenter (same semantics, C++)
-            o = self.options
-            pairs = binding.vad_segments(
-                probs,
-                len(samples),
-                threshold=o.threshold,
-                smooth_window=o.smooth_window_frames,
-                min_speech_ms=o.min_speech_duration_ms,
-                min_silence_ms=o.min_silence_duration_ms,
-                pad_ms=o.speech_pad_ms,
-            )
-            return [{"start": s, "end": e} for s, e in pairs]
         return speech_segments(probs, len(samples), self.options)

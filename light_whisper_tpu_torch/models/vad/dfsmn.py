@@ -13,7 +13,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from light_whisper_tpu.models.vad.onnx_import import FILTER_TAPS, NUM_BLOCKS
+NUM_BLOCKS = 7  # DFSMN memory blocks after the first (the exported graph's layout)
+FILTER_TAPS = 20  # lookback (and lookahead) taps of each memory block
 
 
 def combined_filter(back: np.ndarray, ahead: np.ndarray) -> np.ndarray:

@@ -107,6 +107,8 @@ def library() -> ctypes.CDLL:
             lib.lwt_decode_attention.restype = ci
             lib.lwt_decode_attention_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_decode_attention_batched.restype = ci
+            lib.lwt_flash_prefill.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
+            lib.lwt_flash_prefill.restype = ci
             _lib = lib
         return _lib
 

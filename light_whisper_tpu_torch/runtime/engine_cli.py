@@ -16,7 +16,7 @@ ENGINE_CHOICES = ["qwen3-asr-0.6b", "qwen3-asr-1.7b"]
 
 
 def cmd_serve(engine: str, device: str) -> None:
-    from light_whisper_tpu.runtime.logging_util import setup_rotating_logger
+    from light_whisper_tpu_torch.runtime.logging_util import setup_rotating_logger
     from light_whisper_tpu_torch.runtime.qwen3_server import Qwen3EngineServer
 
     server = Qwen3EngineServer(engine=engine, device=device)  # raises without a GPU for cuda

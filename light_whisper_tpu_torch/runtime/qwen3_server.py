@@ -1,50 +1,95 @@
 """Qwen3-ASR engine server on PyTorch (counterpart of ``runtime/qwen3_server.py``).
 
-:class:`Qwen3EngineServer` subclasses the reference server and overrides every
-seam that reaches JAX: the backend and device report, the warmup ladder, the
-session pool and incremental VAD (this port serves the stateless path), and
-``transcribe`` itself. Replies keep the reference's fields one for one;
-``backend`` reports ``cuda`` (or ``cpu`` when run on the CPU on purpose).
+Response-shape parity with the reference server: duration floor, VAD-gated
+empty results, outer-silence trimming that keeps inner pauses, per-request
+``vad_ms`` / ``inference_ms``, cumulative stats, and typed init errors
+(``models_not_downloaded`` / ``import_error`` / ``init_error``) the UI routes
+on. Replies keep the reference's fields one for one; ``backend`` reports
+``cuda`` (or ``cpu`` when run on the CPU on purpose).
 
-Concurrent requests coalesce through the inherited scheduler seams
-(``_submit_decode`` → ``_run_decode_batch`` → ``model.transcribe_batch``), and
-long recordings take the inherited ``_transcribe_long_form``
-(``serving/longform.py``: VAD over the whole recording, windows, one batched
-decode); both reference modules are JAX-free.
+Requests are served stateless: the reference's KV-session reuse, incremental
+VAD, trim pinning and warm-up ladder are not ported yet, and neither are their
+seams. Concurrent requests coalesce through the scheduler (``_submit_decode``
+→ ``_run_decode_batch`` → ``model.transcribe_batch``), and long recordings
+take ``_transcribe_long_form`` (``serving/longform.py``: VAD over the whole
+recording, windows, one batched decode).
 """
 
 from __future__ import annotations
 
+import itertools
+import logging
 import os
+import threading
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from light_whisper_tpu.runtime import qwen3_server as _reference
-from light_whisper_tpu.runtime.qwen3_server import LONG_FORM_THRESHOLD_SECONDS, MIN_DURATION_SECONDS, SAMPLE_RATE
 from light_whisper_tpu_torch import __version__
+from light_whisper_tpu_torch.audio.pcm import decode_inline_audio, read_audio_file_mono_f32, resample_linear
+from light_whisper_tpu_torch.download.cache import QWEN3_ASR_MODELS, find_snapshot_file
 from light_whisper_tpu_torch.models.qwen3_asr.model import as_device_audio, resolve_device
+from light_whisper_tpu_torch.runtime.server import CLEANUP_EVERY_N, EngineServer, ServerHooks
 
-DEFAULT_STREAM = "__default__"  # the reference session pool's anonymous-stream key
+SAMPLE_RATE = 16_000
+MIN_DURATION_SECONDS = 0.5
+# Above this, transcription goes through the VAD-segmented long-form path
+# (windows batched on the device) instead of one context. A request forces
+# either way with options={"long_form": bool}.
+LONG_FORM_THRESHOLD_SECONDS = 120.0
 
 
-class Qwen3EngineServer(_reference.Qwen3EngineServer):
-    """Engine logic on ``device``; plug into ``EngineServer`` via :meth:`hooks`."""
+class Qwen3EngineServer:
+    """Engine logic on ``device``; plug into :class:`EngineServer` via :meth:`hooks`."""
 
-    def __init__(self, engine=None, device="cuda", model_factory=None, vad_factory=None, **kwargs):
-        self.device = resolve_device(device)
-        if model_factory is None:
-            model_factory = self._default_model
-        if vad_factory is None:
-            vad_factory = self._default_vad
-        super().__init__(engine=engine, model_factory=model_factory, vad_factory=vad_factory, **kwargs)
+    def __init__(
+        self,
+        engine: Optional[str] = None,
+        device="cuda",
+        model_factory: Optional[Callable[[str], Any]] = None,
+        vad_factory: Optional[Callable[[], Any]] = None,
+        model_path: Optional[str] = None,
+        apply_hot_words: bool = True,
+        logger: Optional[logging.Logger] = None,
+    ) -> None:
+        self.device = resolve_device(device)  # raises for cuda without a GPU
+        engine = engine or os.environ.get("LIGHT_WHISPER_ASR_ENGINE", "qwen3-asr-0.6b")
+        if engine not in QWEN3_ASR_MODELS:
+            raise ValueError(f"不支持的 Qwen3-ASR 引擎: {engine}")
+        self.engine = engine
+        self.model_config = QWEN3_ASR_MODELS[engine]
         self.backend = self.device.type
+        self.log = logger or logging.getLogger(__name__)
+        self._model_factory = model_factory or self._default_model
+        self._vad_factory = vad_factory or self._default_vad
+        self._explicit_model_path = model_path
+        self._apply_hot_words = apply_hot_words
+
+        self.model = None
+        self.vad = None
+        self._scheduler = None  # device serialization + batch coalescing
+        self._init_timings: Dict[str, float] = {}  # per-phase init walls
+        self._stats_lock = threading.Lock()
+        self._init_lock = threading.Lock()  # pipelined requests may race init
+        self._anon_stream = itertools.count()
+        self.initialized = False
+        self.transcription_count = 0
+        self.total_audio_duration = 0.0
+        self._total_inference_ms = 0.0
+        self._total_vad_ms = 0.0
+        self._vad_calls = 0
+        self._vad_rejected = 0
+        self._batched_requests = 0
+        self._batch_dispatches = 0
+        self._last_load_error: Optional[str] = None
+        self._hotword_corrector = None
 
     def _default_model(self, model_path: str):
         from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
 
+        # LIGHT_WHISPER_PRECISE=1: dense f32 weights + f32 compute/KV (fidelity mode)
         precise = os.environ.get("LIGHT_WHISPER_PRECISE", "") not in ("", "0")
         return Qwen3ASRModel(model_path, device=self.device, precise=precise)
 
@@ -58,7 +103,35 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
             return {"device": "gpu", "device_kind": torch.cuda.get_device_name(self.device)}
         return {"device": "cpu", "device_kind": "cpu"}
 
-    # -- seams that reach JAX in the reference -----------------------------
+    # ------------------------------------------------------------------
+
+    def hooks(self) -> ServerHooks:
+        return ServerHooks(
+            initialize=self.initialize,
+            transcribe=self.transcribe,
+            status=self.check_status,
+            stats=self.performance_stats,
+            cleanup=self.cleanup,
+            shutdown=self.shutdown,
+        )
+
+    def serve_forever(self) -> None:
+        EngineServer(self.hooks(), logger=self.log).run()
+
+    # ------------------------------------------------------------------
+
+    def _resolve_model_path(self) -> Optional[str]:
+        if self._explicit_model_path:
+            return self._explicit_model_path
+        # explicit override for self-hosted / converted artifacts and tests
+        override = os.environ.get("LIGHT_WHISPER_MODEL_PATH")
+        if override:
+            return override if os.path.isfile(override) else None
+        return find_snapshot_file(self.model_config["repo_id"], self.model_config["filename"])
+
+    def initialize(self) -> Dict[str, Any]:
+        with self._init_lock:
+            return self._initialize_locked()
 
     def _initialize_locked(self) -> Dict[str, Any]:
         if self.initialized:
@@ -109,6 +182,12 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
                 "engine": self.engine,
             }
 
+    def _teardown(self, exc: Exception) -> None:
+        self.model = None
+        self.vad = None
+        self._last_load_error = str(exc)
+        self.log.exception("Qwen3-ASR init failed: %s", exc)
+
     def _warmup(self) -> None:
         """VAD then model, serially: one device, no compile walls to overlap."""
         started = time.perf_counter()
@@ -122,14 +201,104 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
         except Exception as exc:
             self.log.warning("warmup failed (first request may be slow): %s", exc)
 
-    def _streaming_sessions(self):
-        return None  # stateless path: KV session reuse is not ported yet
+    # ------------------------------------------------------------------
 
-    def _vad_timestamps(self, audio: np.ndarray, session_key: str):
-        return self.vad.speech_timestamps(audio)
+    def _load_audio(self, audio_path, audio_base64, audio_format, sample_rate):
+        """A request's audio as 16 kHz float32 mono, its duration and input mode.
 
-    def _stabilize_trim(self, raw: np.ndarray, start: int, end: int, session_key: str):
-        return start, end
+        Inline payloads take priority over paths. Only raw PCM is accepted
+        inline: rejecting WAV with the contract string triggers the client's
+        temp-file fallback."""
+        if audio_base64:
+            decoded, duration = decode_inline_audio(audio_base64, audio_format, sample_rate)
+            if not isinstance(decoded, np.ndarray):
+                raise ValueError("Qwen3-ASR 内存输入仅支持 PCM")
+            mode = "memory"
+            audio = self._resample(decoded, sample_rate or SAMPLE_RATE)
+        else:
+            if not audio_path or not os.path.exists(audio_path):
+                raise FileNotFoundError(f"音频文件不存在: {audio_path}")
+            mode = "path"
+            samples, source_rate = read_audio_file_mono_f32(audio_path)
+            audio = self._resample(samples, source_rate)
+            duration = audio.size / float(SAMPLE_RATE)
+        return np.ascontiguousarray(audio, dtype=np.float32), duration, mode
+
+    @staticmethod
+    def _resample(audio: np.ndarray, source_rate: int) -> np.ndarray:
+        return resample_linear(audio, source_rate, SAMPLE_RATE)
+
+    def _filter_speech(self, audio: np.ndarray):
+        """Trim leading and trailing silence only: inner pauses stay, so the
+        model still sees natural phrase timing."""
+        started = time.perf_counter()
+        segments = self.vad.speech_timestamps(audio)
+        vad_ms = (time.perf_counter() - started) * 1000
+        with self._stats_lock:
+            self._vad_calls += 1
+            self._total_vad_ms += vad_ms
+        start = max(0, int(segments[0]["start"])) if segments else 0
+        end = min(len(audio), int(segments[-1]["end"])) if segments else 0
+        if end <= start:
+            with self._stats_lock:
+                self._vad_rejected += 1
+            return np.empty(0, dtype=np.float32), 0, vad_ms
+        return np.ascontiguousarray(audio[start:end]), len(segments), vad_ms
+
+    def _retained_audio_bytes(self) -> Dict[str, int]:
+        """Host audio kept between requests; the stateless path keeps none."""
+        return {"trim_pin_retained_bytes": 0, "vad_session_retained_bytes": 0}
+
+    def _transcribe_model(self, audio: np.ndarray):
+        return self.model.transcribe(audio)
+
+    # -- multi-stream coalescing ---------------------------------------
+
+    def _decode_scheduler(self):
+        """One device job at a time; requests queued together coalesce into
+        one ``transcribe_batch`` dispatch."""
+        if self._scheduler is None:
+            with self._init_lock:  # racing first requests must share ONE scheduler
+                if self._scheduler is None:
+                    from light_whisper_tpu_torch.serving.scheduler import EngineScheduler
+
+                    self._scheduler = EngineScheduler()
+        return self._scheduler
+
+    def _submit_decode(self, audio: np.ndarray, stream: str):
+        scheduler = self._decode_scheduler()
+        job = scheduler.submit_batchable(
+            stream,
+            audio,
+            batch_key="transcribe",
+            batch_runner=self._run_decode_batch,
+            supersede=False,
+            max_batch=8,
+        )
+        return scheduler.wait(job)
+
+    def _run_decode_batch(self, audios: List[np.ndarray]):
+        if len(audios) == 1:
+            return [self._transcribe_model(audios[0])]
+        with self._stats_lock:
+            self._batched_requests += len(audios)
+            self._batch_dispatches += 1
+        return self.model.transcribe_batch(audios)
+
+    def _correct_hot_words(self, text: str, hot_words: Optional[List[str]]) -> str:
+        if not text or not hot_words or not self._apply_hot_words:
+            return text
+        try:
+            if self._hotword_corrector is None:
+                with self._init_lock:  # worker threads race the first pass
+                    if self._hotword_corrector is None:
+                        from light_whisper_tpu_torch.text.hotwords import HotWordCorrector
+
+                        self._hotword_corrector = HotWordCorrector()
+            return self._hotword_corrector.correct(text, hot_words)
+        except Exception as exc:  # never fail a transcription over biasing
+            self.log.warning("hot-word correction failed: %s", exc)
+            return text
 
     def transcribe(
         self,
@@ -146,12 +315,9 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
                 return init_result
         input_mode = "memory" if audio_base64 else "path"
         options = options or {}
-        named_stream = options.get("stream")
-        stream = str(named_stream or f"req-{next(self._anon_stream)}")
-        session_key = str(named_stream) if named_stream else DEFAULT_STREAM
-        with self._stats_lock:
-            self._active_requests += 1
-            self._device_idle.clear()
+        # requests naming a stream share scheduler ordering; anonymous ones
+        # each get their own, so concurrent ones can batch together
+        stream = str(options.get("stream") or f"req-{next(self._anon_stream)}")
         try:
             audio, duration, input_mode = self._load_audio(
                 audio_path, audio_base64, audio_format, sample_rate
@@ -171,7 +337,7 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
                     audio, duration, input_mode, hot_words, stream,
                     max_window_seconds=options.get("long_form_max_window_seconds"),
                 )
-            audio, vad_segments, vad_ms = self._filter_speech(audio, session_key)
+            audio, vad_segments, vad_ms = self._filter_speech(audio)
             speech_duration = len(audio) / float(SAMPLE_RATE)
             if not vad_segments:
                 return {
@@ -191,7 +357,7 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
                 }
             audio = as_device_audio(audio)
             started = time.perf_counter()
-            result = self._submit_decode(audio, stream, session_key)
+            result = self._submit_decode(audio, stream)
             inference_ms = (time.perf_counter() - started) * 1000
             with self._stats_lock:
                 self._total_inference_ms += inference_ms
@@ -222,11 +388,73 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
                 "type": "transcription_error",
                 "input_mode": input_mode,
             }
-        finally:
-            with self._stats_lock:
-                self._active_requests -= 1
-                if self._active_requests <= 0:
-                    self._device_idle.set()
+
+    def _transcribe_long_form(
+        self, audio, duration, input_mode, hot_words, stream, max_window_seconds=None
+    ):
+        from light_whisper_tpu_torch.serving.longform import DEFAULT_MAX_WINDOW_SECONDS, transcribe_long_form
+
+        try:
+            window_s = float(max_window_seconds or DEFAULT_MAX_WINDOW_SECONDS)
+        except (TypeError, ValueError):
+            window_s = DEFAULT_MAX_WINDOW_SECONDS
+        window_s = min(max(window_s, 1.0), DEFAULT_MAX_WINDOW_SECONDS)
+
+        started = time.perf_counter()
+        # long-form work rides the same scheduler (a plain, unbatchable job),
+        # so it never interleaves with coalesced decodes
+        scheduler = self._decode_scheduler()
+        job = scheduler.submit(
+            stream,
+            lambda: transcribe_long_form(self.model, self.vad, audio, max_window_seconds=window_s),
+            supersede=False,
+        )
+        result = scheduler.wait(job)
+        total_ms = (time.perf_counter() - started) * 1000
+        with self._stats_lock:
+            self._vad_calls += 1
+            self.transcription_count += 1
+            self._total_inference_ms += total_ms
+            if result.num_windows == 0:
+                self._vad_rejected += 1
+        text = self._correct_hot_words(result.text, hot_words)
+        self._maybe_cleanup(duration)
+        return {
+            "success": True,
+            "text": text,
+            "raw_text": result.text,
+            "confidence": 0.0,
+            "duration": duration,
+            "speech_duration": round(result.speech_seconds, 3),
+            "language": result.language,
+            "engine": self.engine,
+            "model_type": self.engine,
+            "backend": self.backend,
+            "input_mode": input_mode,
+            "vad_segments": result.num_windows,
+            "vad_ms": round(result.vad_ms, 3),
+            "inference_ms": round(total_ms, 3),
+            "long_form": True,
+            # per-window attribution: decode wall and planned window sizes
+            "long_form_asr_ms": round(result.asr_ms, 3),
+            "long_form_window_seconds": result.window_seconds,
+        }
+
+    # ------------------------------------------------------------------
+
+    def _maybe_cleanup(self, duration: float) -> None:
+        if self.transcription_count % CLEANUP_EVERY_N == 0 or duration > 120:
+            threading.Thread(target=self.cleanup, daemon=True).start()
+
+    def cleanup(self) -> None:
+        import gc
+
+        gc.collect()
+
+    def shutdown(self) -> None:
+        if self._scheduler is not None:
+            self._scheduler.shutdown()
+            self._scheduler = None
 
     def performance_stats(self) -> Dict[str, Any]:
         stats = {
@@ -238,10 +466,12 @@ class Qwen3EngineServer(_reference.Qwen3EngineServer):
             "average_vad_ms": round(self._total_vad_ms / max(1, self._vad_calls), 3),
             "vad_calls": self._vad_calls,
             "vad_rejected": self._vad_rejected,
-            "vad_prefix_reuse": self._vad_prefix_reuse,
+            # the reference's session and interim-tick counters: always 0 on
+            # the stateless path, kept so that replies carry the same fields
+            "vad_prefix_reuse": 0,
             "batch_dispatches": self._batch_dispatches,
             "batched_requests": self._batched_requests,
-            "batched_tick_dispatches": self._batched_tick_dispatches,
+            "batched_tick_dispatches": 0,
             "batched_tick_degrades": 0,
             "batched_tick_last_error": None,
             "initialized": self.initialized,

@@ -5,16 +5,17 @@ without a GPU. The file imports no JAX, so it also runs on a machine that has
 only PyTorch: ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_cuda.py`` (the repository's conftest imports JAX).
 Tolerances as in ``chip_smoke.py``: 1e-4 relative for the Q8 forms, one bf16
-ulp for the residual epilogue, 5e-3 for attention (stacked, unstacked and
-batched), bitwise on integers.
+ulp for the residual epilogue, 5e-3 for attention (stacked, unstacked,
+batched and flash prefill), bitwise on integers.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from light_whisper_tpu.formats.gguf import quantize_q8_0
+from light_whisper_tpu_torch.formats.gguf import quantize_q8_0
 from light_whisper_tpu_torch.ops import decode_attention as da
+from light_whisper_tpu_torch.ops import flash_prefill as fp
 from light_whisper_tpu_torch.ops import q8_matmul as q8
 
 pytestmark = pytest.mark.cuda
@@ -165,3 +166,26 @@ def test_fused_form_at_eight_rows_and_48_kb_of_staged_input(cuda):
     torch.cuda.synchronize()
     mag = torch.maximum(want.abs(), acc.abs()).clamp_min(1e-30)
     assert bool(((got - want).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7) * 1.0001).all())
+
+
+@pytest.mark.parametrize("T,Hq,Hkv,C,start", [(65, 16, 8, 8192, 0), (130, 4, 2, 8192, 4000),
+                                              (12, 6, 2, 1024, 1012), (300, 16, 8, 8192, 7892)])
+def test_flash_prefill(cuda, T, Hq, Hkv, C, start):
+    """Against its plain version at the kernel's key tile; junk past the last
+    position must not leak in, and ragged row and key edges are masked."""
+    kc = torch.randn(Hkv, C, 128, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(Hkv, C, 128, device=cuda).to(torch.bfloat16)
+    kc[:, start + T:] = 1e4
+    vc[:, start + T:] = -1e4
+    qx = (torch.randn(T, Hq, 128, device=cuda) * 2).to(torch.bfloat16)
+    before = fp.LAUNCHES["flash_prefill"]
+    got = fp.flash_prefill(qx, kc, vc, start)
+    assert fp.LAUNCHES["flash_prefill"] == before + 1
+    torch.testing.assert_close(got, fp.flash_prefill_plain(qx, kc, vc, start), atol=5e-3, rtol=0)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_flash_prefill_refuses_positions_past_the_cache(cuda):
+    kc = torch.zeros(2, 1024, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceed"):
+        fp.flash_prefill(torch.zeros(100, 4, 128, device=cuda, dtype=torch.bfloat16), kc, kc, 1000)

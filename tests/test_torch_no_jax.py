@@ -1,9 +1,11 @@
-"""The port never imports JAX (nor ml_dtypes, which the card's machine lacks).
+"""The port never imports JAX (nor ml_dtypes, which the card's machine lacks),
+nor any module of the JAX package ``light_whisper_tpu``.
 
 A fresh interpreter builds the port's server on the CPU over a tiny GGUF,
-answers through ``EngineServer`` one ``transcribe``, then a pair of
-transcribes coalesced into one batch (queued behind a busy device) and a
-``long_form`` request, and then lists what got imported. Asking for the CUDA device on a machine without a GPU raises, and
+with audio and the wire loop from the port's own modules, answers through
+``EngineServer`` one ``transcribe``, then a pair of transcribes coalesced
+into one batch (queued behind a busy device) and a ``long_form`` request,
+and then lists what got imported. Asking for the CUDA device on a machine without a GPU raises, and
 ``engine_cli serve`` without ``--device cpu`` fails loudly instead of
 serving on the CPU."""
 
@@ -23,8 +25,8 @@ SCRIPT = r"""
 import base64, io, json, sys, threading, time
 import numpy as np
 import torch
-from light_whisper_tpu.eval.speechlike import speechlike
-from light_whisper_tpu.runtime.server import EngineServer
+from light_whisper_tpu_torch.eval.speechlike import speechlike
+from light_whisper_tpu_torch.runtime.server import EngineServer
 from light_whisper_tpu_torch.runtime.qwen3_server import Qwen3EngineServer
 from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
 
@@ -76,7 +78,9 @@ if not torch.cuda.is_available():
     except RuntimeError as exc:
         cuda_error = str(exc)
 print(json.dumps({"replies": replies, "more": more, "cuda_error": cuda_error,
-                  "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes"))}))
+                  "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")),
+                  "reference": sorted(m for m in sys.modules
+                                      if m.split(".")[0] in ("light_whisper_tpu", "__graft_entry__", "helpers"))}))
 """
 
 
@@ -108,6 +112,7 @@ def test_port_serves_without_importing_jax(tiny_gguf):
     assert long_form["success"] is True and long_form["long_form"] is True and long_form["vad_segments"] >= 2
     assert stats["stats"]["batch_dispatches"] == 1 and stats["stats"]["batched_requests"] == 2
     assert result["modules"] == []
+    assert result["reference"] == []
     if not torch.cuda.is_available():
         assert "CUDA" in result["cuda_error"]
 
