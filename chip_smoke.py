@@ -11,19 +11,21 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
 3. each kernel against its plain PyTorch version on the card, at Qwen3-ASR
    0.6B shapes (those of the single-pass path included: the encoder's 6,656
    rows at the 512 s bucket, the 3,968-row prompt's projections, decode
-   attention over ~4,000 keys of an 8192-slot cache), with the tolerance
-   stated on each line (integer-valued cases
-   bitwise): kernel / plain times from CUDA events, the bound (the least time
-   the card could take for the case's bytes and operations) and, for the
-   attention kernels, one ``scaled_dot_product_attention`` call on the same
-   inputs as a yardstick (no single PyTorch call computes Q8_0 dequant-matmul);
+   attention over ~4,000 keys of an 8192-slot cache; the fused decode FFN and
+   the Q8 probes at the decode shapes), with the tolerance stated on each
+   line (integer-valued cases bitwise): kernel / plain times from CUDA
+   events, the bound (the least time the card could take for the case's
+   bytes and operations) and, for the attention kernels, one
+   ``scaled_dot_product_attention`` call on the same inputs as a yardstick
+   (no single PyTorch call computes Q8_0 dequant-matmul or the fused FFN;
+   ``fused_ffn_step`` is timed beside the decoder's six-launch FFN half);
 4. a narrow model (head dim 128, two query heads per KV head) transcribed on
    the card and on the CPU (plain versions): logits and greedy tokens
    compared, then one prefill of 128 rows at KV capacity 8192 (flash-prefill
    kernel on the card, ``attention_chunked`` on the CPU);
 5. a 0.6B-width Q8_0 GGUF with random weights from a seed, served by the
    port's engine server through the wire loop on in-memory pipes, driven
-   along four paths, each with the kernels' launch counts set to 0 just
+   along five paths, each with the kernels' launch counts set to 0 just
    before it and read just after:
    - slice: a 2 s and a 12 s speech-like request and silence, one at a time;
    - batch: four concurrent requests of 2-3 s, then four of 4-12 s, written
@@ -37,6 +39,9 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    - single-pass: one 300 s recording with ``"long_form": false``, decoded as
      one context: a prompt of 3,968 rows against a KV cache of 8192 slots,
      whose prefill attention is the flash-prefill kernel, once a layer;
+   - fused-ffn: the 12 s request of ``slice`` with ``LWT_FUSED_FFN=1``
+     (``fused_ffn_step`` once a layer every decode step), alternated three
+     times with the default route for the decode ms/step of each;
 6. ``engine_cli serve`` in a subprocess: init, one transcribe, exit.
 
 Then the ``nvidia-smi`` line, a JSON line with one entry per kernel and, as
@@ -199,7 +204,10 @@ def zero_past(cache, live):
 def phase_kernels(torch):
     from light_whisper_tpu_torch.ops import decode_attention as da
     from light_whisper_tpu_torch.ops import flash_prefill as fp
+    from light_whisper_tpu_torch.ops import fused_ffn as ffn
     from light_whisper_tpu_torch.ops import q8_matmul as q8
+    from light_whisper_tpu_torch.scripts import exp_q8_compute_bound as cb
+    from light_whisper_tpu_torch.scripts import exp_q8_kperm_probe as kp
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -214,11 +222,13 @@ def phase_kernels(torch):
         s = (torch.rand((L, N, K // 32), generator=gen, device=dev) * 0.02 / 127 + 1e-4).to(torch.bfloat16)
         return q, s
 
-    def record(form, case, err, tol, ms, plain_ms, bitwise=False, ulp_case=False, work=None, library=None):
+    def record(form, case, err, tol, ms, plain_ms, bitwise=False, tol_txt=None, work=None, library=None,
+               yardstick=None):
         ok = err == 0 if bitwise else err <= tol
-        tol_txt = "bitwise" if bitwise else f"tol={tol:.3g}"
-        if ulp_case:
-            ok, tol_txt = True, f"<= 1 bf16 ulp of max(|acc|,|out|) (+1e-3 max|acc| with norm) elementwise (worst {tol:.2f} ulp)"
+        if tol_txt is not None:  # an elementwise criterion, already held by the caller
+            ok = True
+        else:
+            tol_txt = "bitwise" if bitwise else f"tol={tol:.3g}"
         bound, bound_by = bound_ms(*work) if work else (None, None)
         library_ms, library_err = library if library else (None, None)
         extra = ""
@@ -226,6 +236,8 @@ def phase_kernels(torch):
             extra += f" bound={bound:.4f} ms ({bound_by})"
         if library_ms is not None:
             extra += f" sdpa={library_ms:.4f} ms (sdpa max|d|={library_err:.3g})"
+        if yardstick is not None:
+            extra += f" {yardstick[0]}={yardstick[1]:.4f} ms"
         say(f"  {form} {case}: max|d|={err:.3g} {tol_txt} kernel={ms:.4f} ms plain={plain_ms:.4f} ms{extra} "
             f"{'ok' if ok else 'FAIL'}")
         require(ok, f"{form} {case}: max|d| {err} over {tol_txt}")
@@ -234,13 +246,22 @@ def phase_kernels(torch):
              "bound_by": bound_by, "library_ms": library_ms})
 
     def check(form, case, kernel_fn, plain_fn, calls, tol_rel=1e-4, tol_abs=None, ulp_of=None, work=None,
-              library_fn=None):
+              library_fn=None, ulp_or_rel=False, yardstick_fn=None):
         got = kernel_fn(0)
         want = plain_fn(0)
         torch.cuda.synchronize()
-        diff = (got - want).abs()
+        diff = (got.float() - want.float()).abs()
         err = float(diff.max())
-        if ulp_of is not None:
+        tol_txt = None
+        if ulp_or_rel:
+            # a bf16 output of f32 sums taken in another order: one bf16 ulp of
+            # each value, or tol_rel of max|want| where the sum cancels
+            ulp = _bf16_ulp(torch, torch.maximum(got.float().abs(), want.float().abs()))
+            limit = torch.clamp_min(ulp * 1.0001, tol_rel * max(1.0, float(want.float().abs().max())))
+            tol = float((diff / limit).max())
+            require(tol <= 1.0, f"{form} {case}: max|d| {err:.3g} is {tol:.3g} x (1 bf16 ulp or {tol_rel:g} max|ref|)")
+            tol_txt = f"<= 1 bf16 ulp or {tol_rel:g} max|ref| elementwise (worst {tol:.2f} of it)"
+        elif ulp_of is not None:
             # bf16(res + bf16(acc)): f32 sums taken in another order may round
             # bf16(acc) one ulp apart, i.e. one bf16 ulp of max(|acc|, |out|)
             # (plus tol_rel of max|acc| when the norm prologue's scale, summed in
@@ -252,6 +273,7 @@ def phase_kernels(torch):
             require(not bool(bad.any()),
                     f"{form} {case}: {int(bad.sum())} elements over 1 bf16 ulp + {slack:.3g} (max|d| {err:.3g})")
             tol = float((diff / ulp).max())  # reported in ulps
+            tol_txt = f"<= 1 bf16 ulp of max(|acc|,|out|) (+1e-3 max|acc| with norm) elementwise (worst {tol:.2f} ulp)"
         elif tol_abs is not None:
             tol = tol_abs
         else:
@@ -262,8 +284,9 @@ def phase_kernels(torch):
             lib_err = float((library_fn(0).float() - want).abs().max())
             require(lib_err <= 5e-2, f"{form} {case}: the sdpa yardstick differs by {lib_err:.3g} (tol 5e-2, bf16 out)")
             library = (_time_ms(torch, library_fn, calls), lib_err)
+        yardstick = yardstick_fn and (yardstick_fn[0], _time_ms(torch, yardstick_fn[1], calls))
         record(form, case, err, tol, _time_ms(torch, kernel_fn, calls), _time_ms(torch, plain_fn, calls),
-               ulp_case=ulp_of is not None, work=work, library=library)
+               tol_txt=tol_txt, work=work, library=library, yardstick=yardstick)
 
     # -- 2D: logits head at decode; encoder at 12 s (156 rows) and at the
     # single-pass request's 512 s bucket (6,656 rows) --------------------------
@@ -333,6 +356,61 @@ def phase_kernels(torch):
     want = q8.q8_matmul_fused_plain(xi, qi[1], si[1], None, eps, res)
     record("q8_matmul_stacked_fused", "integer T=4 +residual", float((got - want).abs().max()), 0.0,
            0.0, 0.0, bitwise=True)
+
+    # -- the fused decode FFN (the LWT_FUSED_FFN route), layers cycled ----------
+    gq, gs = stacks["gateup"]
+    dq, ds = stacks["down"]
+    D, F = proj["down"]
+    ffn_bytes = D * 2 * F + 2 * F * (D // 32) * 2 + D * F + D * (F // 32) * 2  # quants and scales a layer
+    for T in (1, 8):
+        x = randn(T, D, scale=3.0).to(torch.bfloat16)
+        norm_w = 1.0 + randn(D, scale=0.1)
+
+        def unfused_half(i, x=x, norm_w=norm_w):
+            # the decoder's default FFN half: six launches
+            gateup = q8.q8_matmul_stacked_fused(x, gq, gs, i % L, norm_w=norm_w, eps=eps)
+            gate, up = torch.chunk(gateup, 2, dim=-1)
+            inner = (torch.nn.functional.silu(gate) * up).to(torch.bfloat16)
+            return q8.q8_matmul_stacked_fused(inner, dq, ds, i % L, residual=x).to(torch.bfloat16)
+
+        check("fused_ffn_step", f"T={T} D={D} F={F}",
+              lambda i: ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, i % L, eps),
+              lambda i: ffn.fused_ffn_step_plain(x, norm_w, gq, gs, dq, ds, i % L, eps),  # the kernel's tile
+              calls=L, tol_rel=1e-3, work=(ffn_bytes + T * D * 2 + D * 4 + T * D * 4, 2 * T * 3 * F * D),
+              yardstick_fn=("six-launch half", unfused_half))
+    h = randn(8, D).to(torch.bfloat16)
+    check("fused_gateup_silu", f"T=8 D={D} F={F}",
+          lambda i: ffn.fused_gateup_silu(h, gq, gs, i % L),
+          lambda i: ffn.fused_gateup_silu_plain(h, gq, gs, i % L), calls=L, ulp_or_rel=True,
+          work=(2 * F * D + 2 * F * (D // 32) * 2 + 8 * D * 2 + 8 * F * 2, 2 * 8 * 2 * F * D))
+
+    # -- the Q8 probes at the 0.6B decode shapes, layers cycled -------------------
+    bk = cb.PERM_BLOCK_K
+    for name in ("qkv", "gateup", "down"):
+        N, K = proj[name]
+        qw, sw = stacks[name]
+        qp = kp.permute_kaxis(qw, bk).contiguous()
+        for T in (1, 8):
+            x = randn(T, K).to(torch.bfloat16)
+            xp = kp.permute_kaxis(x, bk).contiguous()
+            check("q8_probe", f"noscale {name} T={T} {N}x{K}",
+                  lambda i: cb.q8_probe("noscale", x, qw[i % L], sw[i % L]),
+                  lambda i: cb.noscale_plain(x, qw[i % L]), calls=L,
+                  work=(T * K * 2 + N * K + T * N * 4, 2 * T * N * K))
+            check("q8_probe", f"load {name} T={T} {N}x{K}",  # integer sums: bitwise
+                  lambda i: cb.q8_probe("load", x, qw[i % L], sw[i % L]),
+                  lambda i: cb.load_plain(qw[i % L], T), calls=L, tol_abs=0.0,
+                  work=(N * K + N * (K // 32) * 2 + T * N * 4, 0))
+            check("q8_matmul_stacked_perm", f"{name} T={T} {N}x{K} block_k={bk}",
+                  lambda i: kp.q8_matmul_stacked_perm_2d(xp, qp, sw, i % L, bk),
+                  lambda i: kp.q8_matmul_perm_plain(xp, qp[i % L], sw[i % L], bk), calls=L,
+                  work=q8_work(T, N, K))
+        if name == "gateup":
+            x = randn(8, K).to(torch.bfloat16)
+            check("q8_matmul_perm", f"gateup T=8 {N}x{K} block_k={bk}, x permuted in the call",
+                  lambda i: kp.q8_matmul_perm(x, qp[i % L], sw[i % L], bk),
+                  lambda i: q8.q8_matmul_plain(x, qw[i % L], sw[i % L]), calls=L, work=q8_work(8, N, K))
+        del qp
 
     # -- decode attention: 0.6B heads, stacked caches --------------------------
     Hq, Hkv, hd = 16, 8, 128
@@ -742,7 +820,7 @@ def phase_slice(torch, engine, client, cfg, launches: Launches):
             steps = engine.model.last_decode_step_s
             med = _median_ms(steps)
             if name == "speech 12 s":
-                step_ms = med
+                step_ms, reply_12s = med, reply
             say(f"  {name}: inference_ms={reply['inference_ms']} vad_ms={reply['vad_ms']} "
                 f"decode_steps={len(steps)} median_step_ms={med:.3f} text_chars={len(reply['text'])}")
         else:
@@ -756,6 +834,7 @@ def phase_slice(torch, engine, client, cfg, launches: Launches):
     require(logits[0].shape[-1] == 152_576, f"logits width {logits[0].shape[-1]}")
     say(f"phase slice: ok (0.6B width, {cfg.decoder.block_count} decoder layers, "
         f"{cfg.audio.block_count} encoder layers, decode {step_ms:.3f} ms/step median on 12 s)")
+    return reply_12s
 
 
 def _coalesced_round(client, name: str, clips, first_rid: int) -> None:
@@ -779,15 +858,24 @@ def _coalesced_round(client, name: str, clips, first_rid: int) -> None:
     require(dispatches >= 1 and batched >= 2, f"{name}: requests did not coalesce ({dispatches}, {batched})")
 
 
+def _divergence(model, clip, solo, other):
+    """``None`` if the token lists agree; else the first step where they part
+    and the top-2 logit gap of ``solo``'s path there."""
+    if solo == other:
+        return None
+    step = next((i for i, (a, b) in enumerate(zip(solo, other)) if a != b), min(len(solo), len(other)))
+    logits = model.teacher_forced_logits(clip, solo[:step])[step][: model.config.decoder.vocab_size]
+    top2 = sorted(logits.tolist())[-2:]
+    return step, top2[1] - top2[0]
+
+
 def _first_divergence(model, clip, solo, batched) -> str:
     """Empty if the token lists agree; else where they part and the per-stream
     top-2 gap there, failing outside the 1e-3 tie band."""
-    if solo == batched:
+    parted = _divergence(model, clip, solo, batched)
+    if parted is None:
         return ""
-    step = next((i for i, (a, b) in enumerate(zip(solo, batched)) if a != b), min(len(solo), len(batched)))
-    logits = model.teacher_forced_logits(clip, solo[:step])[step][: model.config.decoder.vocab_size]
-    top2 = sorted(logits.tolist())[-2:]
-    gap = top2[1] - top2[0]
+    step, gap = parted
     require(gap <= TIE_BAND, f"batched tokens part from per-stream at step {step} with top-2 gap {gap:.3g}")
     return f"parts at step {step}, top-2 gap {gap:.3g} (tie)"
 
@@ -911,13 +999,83 @@ def phase_single_pass(torch, engine, client, cfg, launches: Launches):
         f"decode {_median_ms(steps):.3f} ms/step median)")
 
 
-def phase_profile(torch, model, out_dir: str, steps: int = 32):
-    """torch.profiler over a 12 s transcribe and a B = 8 ``transcribe_batch`` of
-    3 s clips, each cut to ``steps`` decode steps: device time by kernel, and
-    the device's busy share of the wall."""
+def phase_fused_ffn(torch, engine, client, cfg, launches: Launches, reply_12s: dict, rounds: int = 3):
+    """The slice's 12 s request with ``LWT_FUSED_FFN=1``: every decode step's
+    FFN halves go through ``fused_ffn_step``, one launch a layer. Sent
+    ``rounds`` times with the route and as often without, alternating, for the
+    decode ms/step of each (host noise between runs is larger than the gain)."""
     from light_whisper_tpu_torch.eval.speechlike import speechlike
 
+    model = engine.model
+    audio = speechlike(12.0, seed=SEED + 1)
+    seen = []  # (route, audio the model got, tokens, decode steps) of each request
+    real_transcribe = model.transcribe
+
+    def spy(clip):
+        result = real_transcribe(clip)
+        seen.append((os.environ.get("LWT_FUSED_FFN"), clip, result.tokens, len(model.last_decode_step_s)))
+        return result
+
+    step_ms = {"off": [], "on": []}
+    texts = {"off": set(), "on": set()}
+    model.transcribe = spy
+    launches.start()
+    try:
+        for rnd in range(rounds):
+            for route in ("off", "on"):
+                if route == "on":
+                    os.environ["LWT_FUSED_FFN"] = "1"
+                try:
+                    reply = client.call(_transcribe_cmd(500 + 2 * rnd + (route == "on"), audio))
+                finally:
+                    os.environ.pop("LWT_FUSED_FFN", None)
+                require(reply.get("success") is True and reply.get("backend") == "cuda", f"fused-ffn {route}: {reply}")
+                missing = sorted(set(reply_12s) - set(reply))
+                require(not missing, f"fused-ffn {route}: the reply lacks {missing}")
+                step_ms[route].append(_median_ms(model.last_decode_step_s))
+                texts[route].add(reply.get("text"))
+    finally:
+        del model.transcribe  # the instance attribute; the class method again
+    got = launches.read("fused-ffn", ["fused_ffn_step", "q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
+                                      "decode_attention"])
+    require(len(seen) == 2 * rounds, f"the model ran {len(seen)} transcribes for {2 * rounds} requests")
+    on_forwards = sum(steps for route, _clip, _tokens, steps in seen if route)
+    layers = cfg.decoder.block_count
+    require(got["fused_ffn_step"] == layers * on_forwards,
+            f"fused_ffn_step launched {got['fused_ffn_step']} times; {on_forwards} routed decode forwards "
+            f"x {layers} layers make {layers * on_forwards}")
+    _route, clip, off_tokens, _steps = seen[0]
+    on_tokens = seen[1][2]
+    require(all(t == off_tokens for route, _c, t, _s in seen if not route), "the unrouted replies differ run to run")
+    parted = _divergence(model, clip, off_tokens, on_tokens)
+    note = ("identical tokens" if parted is None
+            else f"first differs at token {parted[0]}, unrouted top-2 gap there {parted[1]:.3g}")
+    say(f"  fused-ffn vs the slice's 12 s reply: {len(on_tokens)} vs {len(off_tokens)} tokens, {note}; text "
+        f"identical to the slice's: unrouted {texts['off'] == {reply_12s.get('text')}}, "
+        f"routed {texts['on'] == {reply_12s.get('text')}}")
+    say(f"  decode ms/step (median of each request's steps), alternating off/on x{rounds}: "
+        f"off {[round(v, 3) for v in step_ms['off']]} on {[round(v, 3) for v in step_ms['on']]}")
+    off, on = sorted(step_ms["off"])[rounds // 2], sorted(step_ms["on"])[rounds // 2]
+    say(f"phase fused-ffn: ok (fused_ffn_step x{got['fused_ffn_step']} = {layers} x {on_forwards} decode forwards; "
+        f"decode {off:.3f} ms/step without the route, {on:.3f} with it, medians of {rounds})")
+
+
+def phase_profile(torch, model, out_dir: str, steps: int = 32):
+    """torch.profiler over a 12 s transcribe (with and without
+    ``LWT_FUSED_FFN``) and a B = 8 ``transcribe_batch`` of 3 s clips, each
+    cut to ``steps`` decode steps: device time and launches by kernel, and the
+    device's busy share of the wall."""
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+
+    def fused_route():
+        os.environ["LWT_FUSED_FFN"] = "1"
+        try:
+            return model.transcribe(speechlike(12.0, seed=SEED + 1))
+        finally:
+            os.environ.pop("LWT_FUSED_FFN", None)
+
     workloads = (("12s", "12 s transcribe", lambda: model.transcribe(speechlike(12.0, seed=SEED + 1))),
+                 ("12s-fused", "12 s transcribe, LWT_FUSED_FFN=1", fused_route),
                  ("batch8", "B=8 transcribe_batch of 3 s clips",
                   lambda: model.transcribe_batch([speechlike(3.0, seed=SEED + 60 + i) for i in range(8)])))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -936,16 +1094,17 @@ def phase_profile(torch, model, out_dir: str, steps: int = 32):
             events = prof.key_averages()
             kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
             device_ms = sum(e.self_device_time_total for e in kernels) / 1000
+            n_kernels = sum(e.count for e in kernels)
             path = os.path.join(out_dir, f"profile_{tag}.txt")
             with open(path, "w") as f:
                 f.write(f"{card_line()}\n{label}, {steps} decode steps: wall {wall_ms:.3f} ms, "
-                        f"device kernels {device_ms:.3f} ms\n"
+                        f"device kernels {device_ms:.3f} ms in {n_kernels} launches\n"
                         f"{events.table(sort_by='self_device_time_total', row_limit=30)}\n")
             for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
                 say(f"  profile {tag}: {e.key[:70]} {e.self_device_time_total / 1000:.3f} ms x{e.count}")
             busy = device_ms / wall_ms if wall_ms else float("nan")
-            say(f"  profile {tag} ({label}): wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms, "
-                f"busy share {busy:.3f} -> {os.path.relpath(path, REPO)}")
+            say(f"  profile {tag} ({label}): wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms in "
+                f"{n_kernels} launches, busy share {busy:.3f} -> {os.path.relpath(path, REPO)}")
     finally:
         model.max_new_tokens = keep
     say("phase profile: ok")
@@ -983,7 +1142,8 @@ def phase_cli(model_path: str):
 
 # ---------------------------------------------------------------------------
 
-WIRE_PATHS = ("slice", "batch", "longform", "single-pass")  # the main paths, driven through EngineServer
+# the main paths, driven through EngineServer
+WIRE_PATHS = ("slice", "batch", "longform", "single-pass", "fused-ffn")
 KERNELS = (
     ("q8_matmul", "light_whisper_tpu_torch/csrc/q8_matmul.cu", "light_whisper_tpu/ops/q8_matmul.py:164",
      "logits T=1 152576x1024"),
@@ -999,6 +1159,17 @@ KERNELS = (
      "light_whisper_tpu/ops/decode_attention.py:215", "B=8 C=1024"),
     ("flash_prefill", "light_whisper_tpu_torch/csrc/flash_prefill.cu",
      "light_whisper_tpu/ops/flash_prefill.py:97", "T=3968 start=0 C=8192"),
+    ("fused_ffn_step", "light_whisper_tpu_torch/csrc/fused_ffn.cu", "light_whisper_tpu/ops/fused_ffn.py:98",
+     "T=1 D=1024"),
+    # no wire path runs the four below, as in the reference: kernels phase only
+    ("fused_gateup_silu", "light_whisper_tpu_torch/csrc/fused_ffn.cu", "light_whisper_tpu/ops/fused_ffn.py:210",
+     "T=8 D=1024"),
+    ("q8_probe", "light_whisper_tpu_torch/csrc/q8_probe.cu", "scripts/exp_q8_compute_bound.py:237",
+     "load gateup T=8"),
+    ("q8_matmul_perm", "light_whisper_tpu_torch/csrc/q8_probe.cu", "scripts/exp_q8_kperm_probe.py:146",
+     "gateup T=8"),
+    ("q8_matmul_stacked_perm", "light_whisper_tpu_torch/csrc/q8_probe.cu", "scripts/exp_q8_kperm_probe.py:175",
+     "gateup T=8"),
 )
 
 
@@ -1012,7 +1183,8 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="identify, build and check the kernels; skip the model phases")
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile a short 12 s transcribe and a B=8 batch; tables under DIR")
+                        help="also profile a short 12 s transcribe (with and without LWT_FUSED_FFN) and a "
+                             "B=8 batch; tables under DIR")
     args = parser.parse_args(argv)
 
     try:
@@ -1034,21 +1206,26 @@ def main(argv=None) -> int:
 
     from light_whisper_tpu_torch.ops import decode_attention as da
     from light_whisper_tpu_torch.ops import flash_prefill as fp
+    from light_whisper_tpu_torch.ops import fused_ffn as ffn
     from light_whisper_tpu_torch.ops import q8_matmul as q8
+    from light_whisper_tpu_torch.scripts import exp_q8_compute_bound as cb
+    from light_whisper_tpu_torch.scripts import exp_q8_kperm_probe as kp
 
+    os.environ.pop("LWT_FUSED_FFN", None)  # the default route everywhere but the fused-ffn path
     try:
         card = phase_identify(torch)
         phase_build()
         results = phase_kernels(torch)
-        launches = Launches(torch, [q8.LAUNCHES, da.LAUNCHES, fp.LAUNCHES])
+        launches = Launches(torch, [q8.LAUNCHES, da.LAUNCHES, fp.LAUNCHES, ffn.LAUNCHES, cb.LAUNCHES, kp.LAUNCHES])
         if not args.kernels_only:
             phase_narrow(torch)
             engine, client, model_path, cfg = start_server()
             try:
-                phase_slice(torch, engine, client, cfg, launches)
+                reply_12s = phase_slice(torch, engine, client, cfg, launches)
                 phase_batch(torch, engine, client, launches)
                 phase_longform(torch, client, launches)
                 phase_single_pass(torch, engine, client, cfg, launches)
+                phase_fused_ffn(torch, engine, client, cfg, launches, reply_12s)
                 if args.profile:
                     phase_profile(torch, engine.model, args.profile)
                 bye = client.call({"action": "exit", "request_id": 999})

@@ -33,15 +33,23 @@ Routing follows the reference's fused-decode flow (``_layer_forward_stacked``):
   bf16 on the card, :func:`attention_chunked` otherwise (the CPU, or f32
   precise compute); everything else takes the plain masked softmax, which
   holds ``[Hkv, G, T, C]`` f32 logits. The reference's ``LWT_FLASH_PREFILL``
-  opt-in exists for its TPU compiler and is not ported.
+  opt-in exists for its TPU compiler and is not ported;
+- the FFN half: with ``LWT_FUSED_FFN`` set (read once a :func:`forward` call,
+  as the reference's ``_use_fused_ffn``), the single-stream forward sends up
+  to 8 rows with Q8 weights through the one-launch ``fused_ffn_step``, as the
+  reference's ``_layer_forward_stacked`` does; the batched forwards never
+  take it, as the reference's ``_layer_forward_batch`` does not.
 
-Numerics match the reference's unfused path, which its fused kernels are
-built to reproduce bit for bit.
+Numerics match the reference's unfused path, which its fused projection
+kernels are built to reproduce bit for bit. The fused FFN adds the residual
+once in f32 (the unfused half rounds twice in bf16), so it is off by default,
+as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -58,6 +66,7 @@ from light_whisper_tpu_torch.ops.decode_attention import (
     decode_attention_unstacked,
 )
 from light_whisper_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+from light_whisper_tpu_torch.ops.fused_ffn import fused_ffn_step
 from light_whisper_tpu_torch.ops.linear import apply_linear, dense_matmul
 from light_whisper_tpu_torch.ops.q8_matmul import (
     FUSED_MAX_ROWS,
@@ -218,6 +227,20 @@ def _attention_decode_batch(cfg: DecoderConfig, q: torch.Tensor, cache: BatchKVC
     return decode_attention_batched_plain(q, cache.k, cache.v, cache.pos, idx, dtype)
 
 
+def _use_fused_ffn() -> bool:
+    """``LWT_FUSED_FFN`` as the reference reads it: off unless set to
+    something other than ``""`` or ``"0"``."""
+    return os.environ.get("LWT_FUSED_FFN", "0") not in ("", "0")
+
+
+def _fused_ffn_half(cfg: DecoderConfig, layers: Dict, idx: int, x: torch.Tensor) -> torch.Tensor:
+    """The FFN half of a layer (norm → gate/up → silu·mul → down → residual) in
+    one ``fused_ffn_step`` launch."""
+    gu, dn = layers["gateup"], layers["down"]
+    return fused_ffn_step(x, layers["ffn_norm"][idx], gu["q"], gu["s"], dn["q"], dn["s"], idx,
+                          cfg.rms_epsilon).to(x.dtype)
+
+
 def _layer_forward_rows(
     cfg: DecoderConfig,
     layers: Dict,
@@ -226,9 +249,12 @@ def _layer_forward_rows(
     cos: torch.Tensor,  # [R, hd]
     sin: torch.Tensor,
     attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+    fused_ffn: bool = False,
 ) -> torch.Tensor:
     """One layer over R rows. ``attend(q [R, Hq, hd], k, v [R, Hkv, hd])`` writes
-    the new K/V into its cache and returns the attention ``[R, Hq, hd]``."""
+    the new K/V into its cache and returns the attention ``[R, Hq, hd]``.
+    ``fused_ffn`` sends the FFN half of up to 8 Q8 rows through
+    :func:`_fused_ffn_half`."""
     R = x.shape[0]
     eps = cfg.rms_epsilon
     quantized = all("q" in layers[name] for name in _PROJ_NAMES)
@@ -260,6 +286,8 @@ def _layer_forward_rows(
 
     attn = attend(q, k, v)
     x = proj_residual("o", attn.reshape(R, -1), x)
+    if fused and fused_ffn:
+        return _fused_ffn_half(cfg, layers, idx, x)
     gateup = proj_norm("gateup", x, layers["ffn_norm"][idx])
     gate, up = torch.chunk(gateup, 2, dim=-1)
     return proj_residual("down", (torch.nn.functional.silu(gate) * up).to(x.dtype), x)
@@ -273,6 +301,7 @@ def _layer_forward(
     cache: KVCache,
     cos: torch.Tensor,
     sin: torch.Tensor,
+    fused_ffn: bool = False,
 ) -> torch.Tensor:
     def attend(q, k, v):
         pos, T = cache.pos, q.shape[0]
@@ -280,7 +309,7 @@ def _layer_forward(
         cache.v[idx, :, pos : pos + T] = v.transpose(0, 1).to(cache.v.dtype)
         return _attention(cfg, q, cache, idx, pos)
 
-    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend)
+    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend, fused_ffn)
 
 
 def _layer_forward_batch(
@@ -342,9 +371,10 @@ def forward(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, cache: KVCac
     positions = cache.pos + torch.arange(T, device=embeds.device)
     cos, sin = rope_tables(positions, cfg.key_length, cfg.rope_freq_base)
     layers = params["layers"]
+    fused_ffn = _use_fused_ffn()
     x = embeds
     for idx in range(cfg.block_count):
-        x = _layer_forward(cfg, layers, idx, x, cache, cos, sin)
+        x = _layer_forward(cfg, layers, idx, x, cache, cos, sin, fused_ffn)
     cache.pos += T
     return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
 

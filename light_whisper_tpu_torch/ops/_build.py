@@ -109,6 +109,14 @@ def library() -> ctypes.CDLL:
             lib.lwt_decode_attention_batched.restype = ci
             lib.lwt_flash_prefill.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_flash_prefill.restype = ci
+            lib.lwt_fused_ffn_step.argtypes = [vp] * 9 + [ci, ci, ci, cf, vp]
+            lib.lwt_fused_ffn_step.restype = ci
+            lib.lwt_fused_gateup_silu.argtypes = [vp] * 4 + [ci, ci, ci, vp]
+            lib.lwt_fused_gateup_silu.restype = ci
+            lib.lwt_q8_probe.argtypes = [ci] + [vp] * 4 + [ci, ci, ci, ci, cf, vp]
+            lib.lwt_q8_probe.restype = ci
+            lib.lwt_q8_matmul_perm.argtypes = [vp] * 4 + [ci, ci, ci, ci, vp]
+            lib.lwt_q8_matmul_perm.restype = ci
             _lib = lib
         return _lib
 

@@ -4,8 +4,10 @@ Every test here launches a kernel, carries the ``cuda`` marker and skips
 without a GPU. The file imports no JAX, so it also runs on a machine that has
 only PyTorch: ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_cuda.py`` (the repository's conftest imports JAX).
-Tolerances as in ``chip_smoke.py``: 1e-4 relative for the Q8 forms, one bf16
-ulp for the residual epilogue, 5e-3 for attention (stacked, unstacked,
+Tolerances as in ``chip_smoke.py``: 1e-4 relative for the Q8 forms and the
+probes, one bf16 ulp for the residual epilogue, one bf16 ulp or 1e-4 of
+max|ref| for ``fused_gateup_silu``,
+1e-3 relative for ``fused_ffn_step``, 5e-3 for attention (stacked, unstacked,
 batched and flash prefill), bitwise on integers.
 """
 
@@ -16,7 +18,10 @@ import torch
 from light_whisper_tpu_torch.formats.gguf import quantize_q8_0
 from light_whisper_tpu_torch.ops import decode_attention as da
 from light_whisper_tpu_torch.ops import flash_prefill as fp
+from light_whisper_tpu_torch.ops import fused_ffn as ffn
 from light_whisper_tpu_torch.ops import q8_matmul as q8
+from light_whisper_tpu_torch.scripts import exp_q8_compute_bound as cb
+from light_whisper_tpu_torch.scripts import exp_q8_kperm_probe as kp
 
 pytestmark = pytest.mark.cuda
 
@@ -189,3 +194,73 @@ def test_flash_prefill_refuses_positions_past_the_cache(cuda):
     kc = torch.zeros(2, 1024, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="exceed"):
         fp.flash_prefill(torch.zeros(100, 4, 128, device=cuda, dtype=torch.bfloat16), kc, kc, 1000)
+
+
+def _ffn_weights(D, F, device, seed=7):
+    gq, gs = _weights(2, 2 * F, D, seed=seed, device=device)
+    dq, ds = _weights(2, D, F, seed=seed + 1, device=device)
+    return gq, gs, dq, ds
+
+
+def _within_one_ulp(got, want):
+    """One bf16 ulp of each value, or 1e-4 of max|want| where the value
+    comes out of a cancelling sum (the f32 sums run in another order)."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    tol = torch.maximum(torch.exp2(torch.floor(torch.log2(mag)) - 7) * 1.0001, 1e-4 * want.abs().max())
+    assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize("T", [1, 3, 8])
+def test_fused_ffn_step(cuda, T):
+    """0.6B widths (D = 1024, F = 3072), both layers, twice each (the grid
+    barrier's words are reused); 1e-3 of max|ref| against the plain version
+    at the kernel's tile (the rsqrt and the bf16 rounding of ``inner``)."""
+    D, F = 1024, 3072
+    gq, gs, dq, ds = _ffn_weights(D, F, cuda)
+    x = (torch.randn(T, D, device=cuda) * 3).to(torch.bfloat16)
+    norm_w = 1.0 + 0.1 * torch.randn(D, device=cuda)
+    before = ffn.LAUNCHES["fused_ffn_step"]
+    for layer in (0, 1, 0, 1):
+        got = ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, layer)
+        assert got.dtype == torch.float32 and got.shape == (T, D)
+        _close(got, ffn.fused_ffn_step_plain(x, norm_w, gq, gs, dq, ds, layer), rel=1e-3)
+    assert ffn.LAUNCHES["fused_ffn_step"] == before + 4
+
+
+def test_fused_gateup_silu(cuda):
+    D, F = 1024, 3072
+    gq, gs, _dq, _ds = _ffn_weights(D, F, cuda)
+    h = torch.randn(8, D, device=cuda).to(torch.bfloat16)
+    before = ffn.LAUNCHES["fused_gateup_silu"]
+    got = ffn.fused_gateup_silu(h, gq, gs, 1)
+    assert ffn.LAUNCHES["fused_gateup_silu"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (8, F)
+    _within_one_ulp(got, ffn.fused_gateup_silu_plain(h, gq, gs, 1))
+
+
+@pytest.mark.parametrize("T,N,K", [(1, 4096, 1024), (8, 1024, 3072), (12, 300, 512)])
+def test_probe_variants(cuda, T, N, K):
+    """noscale within 1e-4 relative; load bitwise (integer sums)."""
+    q, s = _weights(1, N, K, seed=K, device=cuda)
+    x = torch.randn(T, K, device=cuda).to(torch.bfloat16)
+    before = cb.LAUNCHES["q8_probe"]
+    _close(cb.q8_probe("noscale", x, q[0], s[0]), cb.noscale_plain(x, q[0]))
+    got = cb.q8_probe("load", x, q[0], s[0])
+    torch.testing.assert_close(got, cb.load_plain(q[0], T), rtol=0, atol=0)
+    assert cb.LAUNCHES["q8_probe"] == before + 2
+
+
+@pytest.mark.parametrize("T,N,K,block_k", [(1, 6144, 1024, 512), (8, 1024, 3072, 512), (5, 256, 2048, 2048)])
+def test_perm_matmul(cuda, T, N, K, block_k):
+    """The k-permuted product within 1e-4 relative of the natural one."""
+    q, s = _weights(2, N, K, seed=N, device=cuda)
+    qp = kp.permute_kaxis(q, block_k).contiguous()
+    x = torch.randn(T, K, device=cuda).to(torch.bfloat16)
+    before = dict(kp.LAUNCHES)
+    _close(kp.q8_matmul_perm(x, qp[1], s[1], block_k), q8.q8_matmul_plain(x, q[1], s[1]))
+    xp = kp.permute_kaxis(x, block_k).contiguous()
+    _close(kp.q8_matmul_stacked_perm_2d(xp, qp, s, 0, block_k), q8.q8_matmul_plain(x, q[0], s[0]))
+    assert kp.LAUNCHES == {"q8_matmul_perm": before["q8_matmul_perm"] + 1,
+                           "q8_matmul_stacked_perm": before["q8_matmul_stacked_perm"] + 1}

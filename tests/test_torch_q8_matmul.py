@@ -203,7 +203,9 @@ def test_build_lists_every_kernel_source_and_needs_nvcc(monkeypatch, tmp_path):
     from light_whisper_tpu_torch.ops import _build
 
     names = [p.name for p in _build.sources()]
-    assert names == ["decode_attention.cu", "flash_prefill.cu", "q8_matmul.cu"]
+    assert names == [
+        "decode_attention.cu", "flash_prefill.cu", "fused_ffn.cu", "q8_matmul.cu", "q8_probe.cu",
+    ]
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "kernels")
     monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
     with pytest.raises(RuntimeError, match="nvcc"):
