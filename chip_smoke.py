@@ -17,6 +17,9 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    events, the bound (the least time the card could take for the case's
    bytes and operations) and, for the attention kernels, one
    ``scaled_dot_product_attention`` call on the same inputs as a yardstick
+   (decode attention is also held against its split schedule in torch at
+   the kernel's split count, and each case names its clusters and how many
+   of them the card holds at once)
    (no single PyTorch call computes Q8_0 dequant-matmul or the fused FFN;
    ``fused_ffn_step`` is timed beside the decoder's six-launch FFN half);
 4. a narrow model (head dim 128, two query heads per KV head) transcribed on
@@ -223,7 +226,7 @@ def phase_kernels(torch):
         return q, s
 
     def record(form, case, err, tol, ms, plain_ms, bitwise=False, tol_txt=None, work=None, library=None,
-               yardstick=None):
+               yardstick=None, note=""):
         ok = err == 0 if bitwise else err <= tol
         if tol_txt is not None:  # an elementwise criterion, already held by the caller
             ok = True
@@ -238,7 +241,7 @@ def phase_kernels(torch):
             extra += f" sdpa={library_ms:.4f} ms (sdpa max|d|={library_err:.3g})"
         if yardstick is not None:
             extra += f" {yardstick[0]}={yardstick[1]:.4f} ms"
-        say(f"  {form} {case}: max|d|={err:.3g} {tol_txt} kernel={ms:.4f} ms plain={plain_ms:.4f} ms{extra} "
+        say(f"  {form} {case}: max|d|={err:.3g}{note} {tol_txt} kernel={ms:.4f} ms plain={plain_ms:.4f} ms{extra} "
             f"{'ok' if ok else 'FAIL'}")
         require(ok, f"{form} {case}: max|d| {err} over {tol_txt}")
         results.setdefault(form, []).append(
@@ -246,7 +249,7 @@ def phase_kernels(torch):
              "bound_by": bound_by, "library_ms": library_ms})
 
     def check(form, case, kernel_fn, plain_fn, calls, tol_rel=1e-4, tol_abs=None, ulp_of=None, work=None,
-              library_fn=None, ulp_or_rel=False, yardstick_fn=None):
+              library_fn=None, ulp_or_rel=False, yardstick_fn=None, split_fn=None):
         got = kernel_fn(0)
         want = plain_fn(0)
         torch.cuda.synchronize()
@@ -278,6 +281,13 @@ def phase_kernels(torch):
             tol = tol_abs
         else:
             tol = tol_rel * max(1.0, float(want.abs().max()))
+        note = ""
+        if split_fn is not None:
+            # the kernel's own split schedule in torch, held to the same tolerance: inside a
+            # split the f32 sums run in another order, which may move l by an ulp and flip one bf16 p
+            split_err = float((got.float() - split_fn(0).float()).abs().max())
+            require(split_err <= tol, f"{form} {case}: {split_err:.3g} from the split plain version (tol {tol:.3g})")
+            note = f" (split plain {split_err:.3g})"
         library = None
         if library_fn is not None:
             # the yardstick computes the same function: a wrong mask would time another one
@@ -286,7 +296,7 @@ def phase_kernels(torch):
             library = (_time_ms(torch, library_fn, calls), lib_err)
         yardstick = yardstick_fn and (yardstick_fn[0], _time_ms(torch, yardstick_fn[1], calls))
         record(form, case, err, tol, _time_ms(torch, kernel_fn, calls), _time_ms(torch, plain_fn, calls),
-               tol_txt=tol_txt, work=work, library=library, yardstick=yardstick)
+               tol_txt=tol_txt, work=work, library=library, yardstick=yardstick, note=note)
 
     # -- 2D: logits head at decode; encoder at 12 s (156 rows) and at the
     # single-pass request's 512 s bucket (6,656 rows) --------------------------
@@ -415,19 +425,27 @@ def phase_kernels(torch):
     # -- decode attention: 0.6B heads, stacked caches --------------------------
     Hq, Hkv, hd = 16, 8, 128
 
-    def stacked_cache(C):
-        return randn(L, Hkv, C, hd).to(torch.bfloat16), randn(L, Hkv, C, hd).to(torch.bfloat16)
+    def stacked_cache(C, layers=L):
+        return randn(layers, Hkv, C, hd).to(torch.bfloat16), randn(layers, Hkv, C, hd).to(torch.bfloat16)
 
+    def clusters(T, B, C, splits):
+        """The launch's clusters and how many of them the card holds at once."""
+        units = B * Hkv * -(-(Hq // Hkv * T) // da.TILE_ROWS)
+        return f"({units} clusters, {da.resident_clusters(T, Hq, Hkv, C, hd, splits)} resident)"
+
+    # each case also against the kernel's split schedule in torch at its split count S
     def decode_case(T, start, kc, vc):
-        C = kc.shape[2]
+        Lc, C = kc.shape[0], kc.shape[2]
         qx = randn(T, Hq, hd, scale=3.0)
         sdpa = sdpa_rows(torch, qx, start, C)
-        check("decode_attention", f"T={T} start={start} C={C}",
-              lambda i: da.decode_attention(qx, kc, vc, start, i % L),
-              lambda i: da.decode_attention_plain(qx, kc, vc, start, i % L),
-              calls=L, tol_abs=5e-3,  # bf16 rounding of p
+        splits = da.split_count(C)
+        check("decode_attention", f"T={T} start={start} C={C} S={splits} {clusters(T, 1, C, splits)}",
+              lambda i: da.decode_attention(qx, kc, vc, start, i % Lc),
+              lambda i: da.decode_attention_plain(qx, kc, vc, start, i % Lc),
+              calls=Lc, tol_abs=5e-3,  # bf16 rounding of p
               work=attention_work(qx, Hkv, [(start, T)]),
-              library_fn=lambda i: sdpa(kc[i % L], vc[i % L]))
+              library_fn=lambda i: sdpa(kc[i % Lc], vc[i % Lc]),
+              split_fn=lambda i: da.attention_split_plain(qx, kc[i % Lc], vc[i % Lc], start, splits))
 
     C = 1024
     kc, vc = stacked_cache(C)
@@ -437,38 +455,49 @@ def phase_kernels(torch):
     for T, start in ((1, 511), (64, 0)):
         qx = randn(T, Hq, hd, scale=3.0)
         sdpa = sdpa_rows(torch, qx, start, C)
-        check("decode_attention_unstacked", f"T={T} start={start} C={C}",
+        splits = da.split_count(C)
+        check("decode_attention_unstacked", f"T={T} start={start} C={C} S={splits} {clusters(T, 1, C, splits)}",
               lambda i: da.decode_attention_unstacked(qx, kc[i % L], vc[i % L], start),
               lambda i: da.attention_plain(qx, kc[i % L], vc[i % L], start),
               calls=L, tol_abs=5e-3, work=attention_work(qx, Hkv, [(start, T)]),
-              library_fn=lambda i: sdpa(kc[i % L], vc[i % L]))
+              library_fn=lambda i: sdpa(kc[i % L], vc[i % L]),
+              split_fn=lambda i: da.attention_split_plain(qx, kc[i % L], vc[i % L], start, splits))
     del kc, vc
     # the single-pass decode: 447 steps after 3,968 prompt rows, at capacity 8192
     kc, vc = stacked_cache(8192)
     for start in (3968, 4414):
         decode_case(1, start, kc, vc)
     del kc, vc
+    # the longest single-pass context; 8 layers cycled, so each call's K/V still comes from HBM
+    kc, vc = stacked_cache(32768, layers=8)
+    decode_case(1, 32767, kc, vc)
+    del kc, vc
+
     # per-stream caches, junk past each stream's position (padded prompt tails)
+    def batched_case(B, Cb, positions, Lb):
+        kb = randn(B, Lb, Hkv, Cb, hd).to(torch.bfloat16)
+        vb = randn(B, Lb, Hkv, Cb, hd).to(torch.bfloat16)
+        for b, p in enumerate(positions):
+            kb[b, :, :, p + 1:] = 1e4
+            vb[b, :, :, p + 1:] = -1e4
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        qx = randn(B, Hq, hd, scale=3.0)
+        qb = qx.to(torch.bfloat16)[:, :, None]  # [B, Hq, 1, hd]
+        bmask = (torch.arange(Cb, device=dev)[None, :] <= pos[:, None].long())[:, None, None]  # [B, 1, 1, C]
+        kz, vz = zero_past(kb, bmask[..., None]), zero_past(vb, bmask[..., None])  # [B, 1, 1, C, 1]
+        splits = da.split_count(Cb)
+        check("decode_attention_batched", f"B={B} C={Cb} S={splits} {clusters(1, B, Cb, splits)} pos={positions}",
+              lambda i: da.decode_attention_batched(qx, kb, vb, pos, i % Lb, positions),
+              lambda i: da.decode_attention_batched_plain(qx, kb, vb, pos, i % Lb),
+              calls=Lb, tol_abs=5e-3, work=attention_work(qx, Hkv, [(p, 1) for p in positions]),
+              library_fn=lambda i: torch.nn.functional.scaled_dot_product_attention(
+                  qb, kz[:, i % Lb], vz[:, i % Lb], attn_mask=bmask, enable_gqa=True)[:, :, 0],
+              split_fn=lambda i: da.decode_attention_batched_split_plain(qx, kb, vb, pos, i % Lb, splits))
+
     for B in (2, 8):
         for Cb in (1024, 2048):
-            positions = [37, Cb - 1] if B == 2 else [0, 37, 511, Cb - 1, 3, 200, 700, Cb // 2]
-            kb = randn(B, L, Hkv, Cb, hd).to(torch.bfloat16)
-            vb = randn(B, L, Hkv, Cb, hd).to(torch.bfloat16)
-            for b, p in enumerate(positions):
-                kb[b, :, :, p + 1:] = 1e4
-                vb[b, :, :, p + 1:] = -1e4
-            pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-            qx = randn(B, Hq, hd, scale=3.0)
-            qb = qx.to(torch.bfloat16)[:, :, None]  # [B, Hq, 1, hd]
-            bmask = (torch.arange(Cb, device=dev)[None, :] <= pos[:, None].long())[:, None, None]  # [B, 1, 1, C]
-            kz, vz = zero_past(kb, bmask[..., None]), zero_past(vb, bmask[..., None])  # [B, 1, 1, C, 1]
-            check("decode_attention_batched", f"B={B} C={Cb} pos={positions}",
-                  lambda i: da.decode_attention_batched(qx, kb, vb, pos, i % L, positions),
-                  lambda i: da.decode_attention_batched_plain(qx, kb, vb, pos, i % L),
-                  calls=L, tol_abs=5e-3, work=attention_work(qx, Hkv, [(p, 1) for p in positions]),
-                  library_fn=lambda i: torch.nn.functional.scaled_dot_product_attention(
-                      qb, kz[:, i % L], vz[:, i % L], attn_mask=bmask, enable_gqa=True)[:, :, 0])
-            del kb, vb, kz, vz
+            batched_case(B, Cb, [37, Cb - 1] if B == 2 else [0, 37, 511, Cb - 1, 3, 200, 700, Cb // 2], L)
+    batched_case(8, 4096, [0, 4095, 37, 2048, 1, 4000, 700, 3000], 8)
 
     # -- flash prefill: prompts of more than 64 rows against caches of >= 8192 --
     # layers cycled so that the live K/V of each call comes from HBM

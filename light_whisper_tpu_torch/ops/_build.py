@@ -103,10 +103,12 @@ def library() -> ctypes.CDLL:
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.lwt_q8_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
             lib.lwt_q8_matmul.restype = ci
-            lib.lwt_decode_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
+            lib.lwt_decode_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_decode_attention.restype = ci
-            lib.lwt_decode_attention_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
+            lib.lwt_decode_attention_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_decode_attention_batched.restype = ci
+            lib.lwt_decode_attention_clusters.argtypes = [ci, ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
+            lib.lwt_decode_attention_clusters.restype = ci
             lib.lwt_flash_prefill.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_flash_prefill.restype = ci
             lib.lwt_fused_ffn_step.argtypes = [vp] * 9 + [ci, ci, ci, cf, vp]

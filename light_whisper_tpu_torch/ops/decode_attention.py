@@ -16,10 +16,17 @@ kernel:
 
 A CPU tensor takes the plain PyTorch version in this module; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper.
+
+The kernel splits each work unit's live keys over a cluster of
+:func:`split_count` CTAs and merges the row statistics and partial outputs
+in rank order; :func:`attention_split_plain` and
+:func:`decode_attention_batched_split_plain` run that schedule's arithmetic
+in torch, so the split and merge are tested where the kernel cannot run.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -29,6 +36,10 @@ from light_whisper_tpu_torch.ops import _build
 NEG_INF = -1e30
 MAX_ROWS = 64  # the decoder routes 1 <= T <= 64 here
 KERNEL_HEAD_DIMS = (64, 128, 256)
+TILE_ROWS = 64  # flattened query rows (row = t * G + g) a work unit of the kernel
+MAX_SPLITS = 16  # the largest thread-block cluster Hopper schedules (above 8: non-portable)
+LONG_CAPACITY = 4096  # caches of more slots than this split 16 ways, others 8
+MIN_SPLIT_KEYS = 64  # cache slots a split covers at least
 
 LAUNCHES = {"decode_attention": 0, "decode_attention_unstacked": 0, "decode_attention_batched": 0}
 
@@ -86,6 +97,120 @@ def decode_attention_batched_plain(
     return out.reshape(B, n_heads, hd)
 
 
+def split_count(capacity: int) -> int:
+    """CTAs (one cluster) that share each work unit's live keys in the kernel:
+    16 for caches of more than 4096 slots, 8 otherwise, fewer where a split
+    would cover less than 64 slots.
+
+    A function of the cache capacity only. Never of the live positions, so a
+    captured launch stays valid while they move; and not of the number of
+    streams or rows, so a stream's attention is the same to the bit whether
+    it decodes alone (``decode_attention``) or in a batch
+    (``decode_attention_batched``): the f32 sums of a split run in an order
+    set by the split, and the batched and per-stream decodes must agree
+    token for token, as the reference's do."""
+    splits = MAX_SPLITS if capacity > LONG_CAPACITY else MAX_SPLITS // 2
+    while splits > 1 and capacity < splits * MIN_SPLIT_KEYS:
+        splits //= 2
+    return splits
+
+
+def resident_clusters(T: int, n_heads: int, n_kv: int, capacity: int, hd: int, splits: int) -> int:
+    """How many clusters of ``splits`` CTAs of the kernel that T query rows
+    over a cache of ``capacity`` slots take the current card holds at once
+    (launches nothing; needs a GPU)."""
+    clusters = ctypes.c_int(0)
+    _build.check(_build.library().lwt_decode_attention_clusters(T, n_heads, n_kv, capacity, hd, splits,
+                                                               ctypes.byref(clusters)),
+                 "lwt_decode_attention_clusters")
+    return clusters.value
+
+
+def _split_rows(qr, k_layer, v_layer, pos_rows, splits: int, dtype) -> torch.Tensor:
+    """The kernel's schedule on one stream: ``qr`` [Hkv, R, hd] flattened
+    rows, row r bounded by ``pos_rows[r]``; rows in tiles of 64, each tile's
+    live keys split evenly ``splits`` ways; per split the local max and
+    denominator, merged in rank order; p = bf16(exp(s - m) / l) from the
+    merged statistics; per-split f32 partials p·v summed in rank order.
+    Returns f32 [Hkv, R, hd]."""
+    n_kv, n_rows, hd = qr.shape
+    logits = torch.einsum("krd,kcd->krc", qr.to(dtype).float(), k_layer.to(dtype).float()) * (hd ** -0.5)
+    vf = v_layer.to(dtype).float()
+    out = torch.zeros((n_kv, n_rows, hd), dtype=torch.float32, device=qr.device)
+    for row0 in range(0, n_rows, TILE_ROWS):
+        tile = slice(row0, min(n_rows, row0 + TILE_ROWS))
+        pos = pos_rows[tile]
+        nkeys = int(pos.max()) + 1
+        share = -(-nkeys // splits)
+        bounds = [(min(r * share, nkeys), min(r * share + share, nkeys)) for r in range(splits)]
+        s = logits[:, tile, :nkeys]
+        valid = torch.arange(nkeys, device=qr.device)[None, :] <= pos[:, None]  # [rows, nkeys]
+        m = l = None
+        for k0, k1 in bounds:
+            ok, sr = valid[:, k0:k1], s[..., k0:k1]
+            if k1 > k0:
+                m_r = torch.where(ok, sr, torch.full_like(sr, NEG_INF)).amax(-1)
+                l_r = torch.where(ok, torch.exp(sr - m_r[..., None]), torch.zeros_like(sr)).sum(-1)
+            else:  # an empty split: max -1e30, denominator 0
+                m_r = torch.full(s.shape[:-1], NEG_INF, device=qr.device)
+                l_r = torch.zeros(s.shape[:-1], device=qr.device)
+            if m is None:
+                m, l = m_r, l_r
+            else:
+                m_new = torch.maximum(m, m_r)
+                l = l * torch.exp(m - m_new) + l_r * torch.exp(m_r - m_new)
+                m = m_new
+        p = torch.where(valid, torch.exp(s - m[..., None]) / l[..., None], torch.zeros_like(s)).to(dtype).float()
+        acc = torch.zeros_like(out[:, tile])
+        for k0, k1 in bounds:
+            acc = acc + torch.einsum("krc,kcd->krd", p[..., k0:k1], vf[:, k0:k1])
+        out[:, tile] = acc
+    return out
+
+
+def attention_split_plain(
+    q: torch.Tensor,  # [T, Hq, hd]
+    k_layer: torch.Tensor,  # [Hkv, C, hd]
+    v_layer: torch.Tensor,
+    start: int,
+    splits: int,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """:func:`attention_plain` as the kernel schedules it, ``splits`` CTAs a
+    work unit (rows flattened time-major, row = t·G + g, at ``start + t``).
+    Returns f32 ``[T, Hq, hd]``."""
+    T, n_heads, hd = q.shape
+    n_kv = k_layer.shape[0]
+    groups = n_heads // n_kv
+    qr = q.reshape(T, n_kv, groups, hd).transpose(0, 1).reshape(n_kv, T * groups, hd)
+    pos_rows = start + torch.arange(T * groups, device=q.device) // groups
+    out = _split_rows(qr, k_layer, v_layer, pos_rows, splits, dtype)
+    return out.reshape(n_kv, T, groups, hd).transpose(0, 1).reshape(T, n_heads, hd)
+
+
+def decode_attention_batched_split_plain(
+    q: torch.Tensor,  # [B, Hq, hd]
+    k_all: torch.Tensor,  # [B, L, Hkv, C, hd]
+    v_all: torch.Tensor,
+    pos: torch.Tensor,  # [B] int
+    layer: int,
+    splits: int,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """:func:`decode_attention_batched_plain` as the kernel schedules it: a
+    work unit is (stream, KV head), its keys ``0..pos[b]`` split ``splits``
+    ways. Returns f32 ``[B, Hq, hd]``."""
+    B, n_heads, hd = q.shape
+    n_kv = k_all.shape[2]
+    groups = n_heads // n_kv
+    outs = []
+    for b in range(B):
+        pos_rows = torch.full((groups,), int(pos[b]), device=q.device)
+        outs.append(_split_rows(q[b].reshape(n_kv, groups, hd), k_all[b, layer], v_all[b, layer], pos_rows,
+                                splits, dtype).reshape(n_heads, hd))
+    return torch.stack(outs)
+
+
 def _require(checks) -> None:
     for ok, msg in checks:
         if not ok:
@@ -119,9 +244,10 @@ def _launch_rows(q, k_layer, v_layer, start: int, counter: str) -> torch.Tensor:
     ))
     q = q.to(torch.bfloat16).contiguous()
     out = torch.empty((T, n_heads, hd), dtype=torch.float32, device=q.device)
+    splits = split_count(capacity)
     err = _build.library().lwt_decode_attention(
         q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), out.data_ptr(),
-        T, n_heads, n_kv, capacity, hd, int(start), float(hd ** -0.5),
+        T, n_heads, n_kv, capacity, hd, int(start), splits, float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "lwt_decode_attention")
@@ -183,9 +309,10 @@ def decode_attention_batched(
     _, L, n_kv, capacity, _ = k_all.shape
     q = q.to(torch.bfloat16).contiguous()
     out = torch.empty((B, n_heads, hd), dtype=torch.float32, device=q.device)
+    splits = split_count(capacity)
     err = _build.library().lwt_decode_attention_batched(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, n_heads, n_kv, capacity, L, hd, int(layer), float(hd ** -0.5),
+        B, n_heads, n_kv, capacity, L, hd, int(layer), splits, float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "lwt_decode_attention_batched")

@@ -93,6 +93,21 @@ def test_batched_matches_reference_decode_batch(dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL if dtype == "bfloat16" else 1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 3, 16])
+def test_batched_split_plain_matches_pallas_batched(splits):
+    """The kernel's split schedule a (stream, KV head) against the Pallas kernel,
+    with +/-1e4 junk past each position; the stream at 0 has one live key, so
+    most of its splits are empty."""
+    C = 128
+    positions = [0, 37, C - 1]
+    q, kj, vj, kt, vt = _batched_case(positions, C, seed=20 + splits)
+    want = np.asarray(decode_attention_pallas_batched(
+        jnp.asarray(q), kj, vj, jnp.asarray(positions, jnp.int32), jnp.int32(1), interpret=True))
+    got = da.decode_attention_batched_split_plain(torch.from_numpy(q), kt, vt, torch.tensor(positions), 1, splits)
+    assert got.shape == (len(positions), HQ, HD) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
 def test_each_stream_sees_only_its_own_live_keys():
     positions = [10, 40, 25]
     q, _, _, kt, vt = _batched_case(positions, 64, seed=3)

@@ -150,6 +150,74 @@ def test_decode_attention_batched(cuda, positions):
     assert bool(torch.isfinite(got).all())
 
 
+
+def _held(got, split_want, want):
+    """Within 5e-3 of the split plain version at the kernel's split count
+    (the f32 sums run in another order inside a split, which may move l by an
+    ulp and flip one bf16 p) and of the unsplit plain version."""
+    torch.testing.assert_close(got, split_want, atol=5e-3, rtol=0)
+    torch.testing.assert_close(got, want, atol=5e-3, rtol=0)
+    assert bool(torch.isfinite(got).all())
+
+
+def _split_edges():
+    splits = da.split_count(1024)
+    return [splits - 2, 3 * splits - 2, 3 * splits]  # live keys < S, = 3S - 1, = 3S + 1
+
+
+@pytest.mark.parametrize("start", _split_edges())
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_attention_split_edges(cuda, start, hd):
+    """T=1 (two rows a KV head, CUDA cores) where the live keys do not fill
+    the cluster's splits evenly, at every head dim the kernel takes."""
+    kc = torch.randn(2, 1024, hd, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(2, 1024, hd, device=cuda).to(torch.bfloat16)
+    kc[:, start + 1:] = 1e4  # junk past the position must not leak in
+    vc[:, start + 1:] = -1e4
+    qx = torch.randn(1, 4, hd, device=cuda) * 2
+    before = da.LAUNCHES["decode_attention_unstacked"]
+    got = da.decode_attention_unstacked(qx, kc, vc, start)
+    assert da.LAUNCHES["decode_attention_unstacked"] == before + 1
+    splits = da.split_count(1024)
+    _held(got, da.attention_split_plain(qx, kc, vc, start, splits), da.attention_plain(qx, kc, vc, start))
+
+
+@pytest.mark.parametrize("T,start,C,hd", [(1, 32767, 32768, 128), (64, 960, 1024, 128), (8, 100, 1024, 128),
+                                          (64, 0, 1024, 64), (16, 500, 1024, 256)])
+def test_decode_attention_split_at_0_6b_heads(cuda, T, start, C, hd):
+    """16 query / 8 KV heads: the longest single-pass context, the 128-row
+    tensor-core units (two row tiles), a 16-row unit in a 16-CTA cluster, and
+    head dims 64 and 256 on the tensor cores."""
+    kc = torch.randn(2, 8, C, hd, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(2, 8, C, hd, device=cuda).to(torch.bfloat16)
+    qx = torch.randn(T, 16, hd, device=cuda) * 2
+    before = da.LAUNCHES["decode_attention"]
+    got = da.decode_attention(qx, kc, vc, start, 1)
+    assert da.LAUNCHES["decode_attention"] == before + 1
+    splits = da.split_count(C)
+    _held(got, da.attention_split_plain(qx, kc[1], vc[1], start, splits),
+          da.decode_attention_plain(qx, kc, vc, start, 1))
+
+
+def test_decode_attention_batched_split(cuda):
+    """B=8 with streams at position 0 and at C-1, junk past each position."""
+    positions = [0, 4095, 37, 2048, 1, 4000, 64, 63]
+    B, L, Hq, Hkv, C, hd = len(positions), 2, 16, 8, 4096, 128
+    kc = torch.randn(B, L, Hkv, C, hd, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(B, L, Hkv, C, hd, device=cuda).to(torch.bfloat16)
+    for b, p in enumerate(positions):
+        kc[b, :, :, p + 1:] = 1e4
+        vc[b, :, :, p + 1:] = -1e4
+    qx = torch.randn(B, Hq, hd, device=cuda) * 2
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    before = da.LAUNCHES["decode_attention_batched"]
+    got = da.decode_attention_batched(qx, kc, vc, pos, 1, positions)
+    assert da.LAUNCHES["decode_attention_batched"] == before + 1
+    splits = da.split_count(C)
+    _held(got, da.decode_attention_batched_split_plain(qx, kc, vc, pos, 1, splits),
+          da.decode_attention_batched_plain(qx, kc, vc, pos, 1))
+
+
 def test_batched_attention_needs_device_int32_positions(cuda):
     kc = torch.zeros(2, 1, 2, 64, 128, device=cuda, dtype=torch.bfloat16)
     q = torch.zeros(2, 4, 128, device=cuda)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from light_whisper_tpu.models.qwen3_asr import decoder as ref_dec
-from light_whisper_tpu.ops.decode_attention import decode_attention_pallas_stacked
+from light_whisper_tpu.ops.decode_attention import decode_attention_pallas, decode_attention_pallas_stacked
 from light_whisper_tpu_torch.ops import decode_attention as da
 
 TOL = 5e-3
@@ -81,3 +81,60 @@ def test_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         da.decode_attention(q, kc, kc, 0, 0)
 
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 16])
+@pytest.mark.parametrize("T,start", [(1, 0), (1, 77), (8, 37), (64, 150)])
+def test_split_plain_matches_pallas(T, start, splits):
+    """The kernel's split schedule (per-split statistics merged in rank order,
+    p from the merged ones, partials summed in rank order) against both Pallas
+    kernels; T=1 at start 0 with 16 splits leaves 15 splits without a live key,
+    T=64 (128 rows) takes two row tiles. Tolerance ``TOL``: bf16 rounding of p."""
+    q, k, v, kt, vt = _case(T, seed=3 * T + start + splits)
+    pos = jnp.arange(T, dtype=jnp.int32) + start
+    want = np.asarray(decode_attention_pallas_stacked(jnp.asarray(q), k, v, pos, jnp.int32(1), interpret=True))
+    got = da.attention_split_plain(torch.from_numpy(q), kt[1], vt[1], start, splits)
+    assert got.shape == (T, 4, 128) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    want = np.asarray(decode_attention_pallas(jnp.asarray(q), k[0], v[0], pos, interpret=True))
+    got = da.attention_split_plain(torch.from_numpy(q), kt[0], vt[0], start, splits)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+def test_split_count_depends_on_static_shapes_only(monkeypatch):
+    """The wrapper asks for the same split count at every start and every T
+    of one capacity (a launch geometry that a captured decode step can keep;
+    the batched wrapper asks with the capacity alone too, so a stream decodes
+    the same alone or batched), and it is the count of :func:`split_count`."""
+    assert [da.split_count(c) for c in (64, 128, 256, 512, 1024, 4096, 8192, 32768)] == [1, 2, 4, 8, 8, 8, 16, 16]
+
+    calls = []
+
+    class FakeLib:
+        def lwt_decode_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    class FakeStream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(da._build, "library", lambda: FakeLib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: FakeStream())
+    monkeypatch.setattr(da, "LAUNCHES", dict(da.LAUNCHES))
+    _, _, _, kt, vt = _case(1, C=256)
+    for T, starts in ((1, (0, 9, 100, 255)), (8, (0, 37, 248))):
+        calls.clear()
+        for start in starts:
+            da._launch_rows(torch.zeros(T, 4, 128), kt[0], vt[0], start, "decode_attention")
+        splits = {args[10] for args in calls}  # q, k, v, out, T, Hq, Hkv, C, hd, start, splits, ...
+        assert splits == {da.split_count(256)}, (T, splits)
+    calls.clear()
+    FakeLib.lwt_decode_attention_batched = FakeLib.lwt_decode_attention
+    monkeypatch.setattr(da, "_device_kind", lambda q: "cuda")
+    for positions in ([0], [9, 255, 3], [100] * 8):
+        B = len(positions)
+        k_all = kt[:1, None].expand(B, 2, 2, 256, 128).contiguous()
+        da.decode_attention_batched(torch.zeros(B, 4, 128), k_all, k_all, torch.tensor(positions, dtype=torch.int32),
+                                    1, positions)
+    # q, k, v, pos, out, B, Hq, Hkv, C, L, hd, layer, splits, ...
+    assert {args[12] for args in calls} == {da.split_count(256)}
