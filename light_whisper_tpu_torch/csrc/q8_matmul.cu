@@ -9,289 +9,673 @@
 // entry point serves all three forms. Scales are read as s[n, k/32] directly: the transposed
 // s_t and the one-hot expansion matmul of the TPU kernel were Mosaic layout workarounds.
 //
-// Numerics (shared with the plain PyTorch version in ops/q8_matmul.py):
+// Numerics (shared with the plain PyTorch versions in ops/q8_matmul.py):
 //   w   = bf16(float(q) * float(s))            dequantised weight, rounded to bf16 (RNE)
-//   acc = sum_k float(x_bf16) * float(w)       bf16 products are exact in f32, f32 accumulation
+//   acc = sum_k float(x_bf16) * float(w)       bf16 products on the tensor cores, f32 accumulation
 //   norm prologue:  x = bf16(float(x) * rsqrt(mean(x^2) + eps) * norm_w)
 //   residual epilogue: y = float(bf16(float(res_bf16) + float(bf16(acc))))
 //   output f32.
+// K runs in chunks of 64 (two Q8 blocks). A call's chunks are cut into S contiguous splits
+// (split r takes chunks [r*nk/S, (r+1)*nk/S)); each split's partial runs through the chunks in
+// order, and the partials are summed in rank order, with no float atomics. S is a function of
+// (N, K) alone, never of T: the batched prefill sends B*T rows through the same kernels that a
+// single stream sends T rows through, and each output row must come out bitwise the same.
+// ops/q8_matmul.q8_matmul_split_plain is this schedule in torch.
 //
-// What bounds it on the H100: decode (T <= 8) is a weight stream. One 0.6B decode step reads
-// ~0.6 GB of int8 quants plus 1/16 of that in bf16 scales and does 2 FLOPs per weight byte per
-// row, far below the ~295 FLOP/byte the card needs before compute matters; at 3.35 TB/s the
-// floor is ~0.2 ms per step. Prefill and the encoder (T = 64..~200) do T times more work per
-// weight byte and sit near the ridge.
+// What bounds it on the H100: decode (T <= 8) is a weight stream: one 0.6B decode step reads
+// ~0.6 GB of int8 quants plus 1/16 of that in bf16 scales at 2*T FLOPs a weight byte, far below
+// the ~295 FLOP/byte ridge. Prefill and the encoder (T = 64..6,656) do T times more work a
+// weight byte: at a few thousand rows they are bound by the tensor cores.
 //
-// What the simple design does about it:
-//   T <= 8: weight-streaming GEMV. Each warp owns one output row at a time, each lane loads
-//           16 int8 quants with one 16-byte load (a warp reads 512 contiguous bytes), dequantises
-//           in registers and keeps T f32 partial sums; a warp shuffle reduces them. x (normalised
-//           when the prologue is on) is staged once per block in shared memory as bf16. The grid
-//           strides over rows with enough blocks to cover the 132 SMs several times.
-//   T > 8:  shared-memory tiled kernel. A 64x64 output tile per block, K in steps of one Q8
-//           block (32); the int8 tile is dequantised into shared memory as bf16 and multiplied
-//           with WMMA bf16 16x16x16 fragments accumulating in f32. No pipelining yet: wgmma, TMA
-//           and a persistent schedule are later work.
+// The mma.sync m16n8k16 k order used by both kernels. The instruction gives lane (g = lane/4,
+// c = lane%4) the k pairs {2c, 2c+1} and {2c+8, 2c+9} of each 16-deep step, in A and in B. Here
+// both operands are fed so that lane c's four steps of a 64-wide chunk take the chunk's
+// k = 16c .. 16c+15 in order (step t: 16c+4t+{0,1} and 16c+4t+{2,3}). A and B follow the same
+// map, so each product pairs the right x with the right weight; a lane reads 16 contiguous
+// quants (one 16-byte load) and 16 contiguous bf16 of x (two 16-byte loads) a chunk.
+//
+//   T <= 8: q8_gemv_kernel. A CTA of 4 warps owns 8 weight rows at a time (mma's n = 8) and
+//           splits K over its warps (S = 4, every T). A = x (the T rows, zero-padded to 16),
+//           B = the 8 rows dequantised in registers. T = 1 runs the same instructions as T = 8
+//           with zero rows, so each output sums in one order for every T. Each warp issues its
+//           first quants and scales right behind the x prologue's copies and keeps two
+//           batches of 4 chunks (64 bytes a lane each) in registers, one in flight while the
+//           other is used; CTAs stride over row groups.
+//   T > 8:  q8_tile_kernel. A 64x128 output tile per CTA (4 warps of 64x32), K in chunks of
+//           64 streamed by cp.async through a ring of 4 stages of x, quants and scales; the
+//           quants are dequantised to bf16 in registers right before the mma. With S > 1 the
+//           S CTAs of a tile form a thread-block cluster; each writes its f32 partial tile to
+//           its shared memory and rank r sums its 1/S of the rows over all ranks in rank order
+//           through distributed shared memory. With S = 1 y is stored from the accumulators.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <mutex>
+
+#include "attention_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBlock = 32;  // Q8_0 block length along K
+constexpr int kChunk = 64;  // K a chunk: two Q8 blocks, four mma k-steps
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// Chunk range [lo, hi) of split r of S over n chunks.
+__host__ __device__ __forceinline__ void split_range(int n, int S, int r, int& lo, int& hi) {
+  lo = (int)((long long)r * n / S);
+  hi = (int)((long long)(r + 1) * n / S);
+}
+
+// 16 int8 quants times one scale -> 8 bf16 pairs, bf16(q * s) rounded to nearest even. Each byte
+// becomes an exact float through the 2^23 exponent trick (biased by 128); q * s is exact in f32.
+__device__ __forceinline__ void dequant16(const int4& qv, float sc, uint32_t (&w)[8]) {
+  const uint32_t words[4] = {(uint32_t)qv.x, (uint32_t)qv.y, (uint32_t)qv.z, (uint32_t)qv.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t u = words[j] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + b)) - 8388736.0f;  // 2^23 + 128
+    }
+    w[2 * j] = pack_bf16(f[0] * sc, f[1] * sc);
+    w[2 * j + 1] = pack_bf16(f[2] * sc, f[3] * sc);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// T <= 8: GEMV
+// T <= 8: GEMV on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kGemvThreads = 256;
-constexpr int kGemvWarps = kGemvThreads / 32;
+constexpr int kGemvWarps = 4;  // = the K splits of every T <= 8 call
+constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kGemvRows = 8;   // weight rows a group (mma's n)
+constexpr int kGemvBatch = 4;  // chunks a lane holds in registers a batch
+constexpr int kGemvCtasPerSm = 4;
+constexpr int kMaxRows = 8;
+constexpr int kNormVecs = 3;  // norm_w vectors a thread prefetches: K <= 3 * 8 * threads (3072)
 
-template <int T>
-__global__ void __launch_bounds__(kGemvThreads) q8_gemv_kernel(
-    const __nv_bfloat16* __restrict__ x,         // [T, K]
-    const int8_t* __restrict__ q,                // [N, K]
-    const __nv_bfloat16* __restrict__ s,         // [N, K/32]
-    const float* __restrict__ norm_w,            // [K] or null
-    const __nv_bfloat16* __restrict__ residual,  // [T, N] or null
-    float* __restrict__ y,                       // [T, N]
-    int N, int K, float eps) {
+struct GemvBatch {
+  int4 q[kGemvBatch];
+  float s[kGemvBatch];
+};
+
+struct GemvArgs {
+  const __nv_bfloat16* x;         // [T, K]
+  const int8_t* q;                // [N, K]
+  const __nv_bfloat16* s;         // [N, K/32]
+  const float* norm_w;            // [K] or null
+  const __nv_bfloat16* residual;  // [T, N] or null
+  float* y;                       // [T, N]
+  int T, N, K;
+  float eps;
+};
+
+__device__ __forceinline__ int4 ldg_stream(const int8_t* p) {
+  int4 v;
+  // volatile: issued where written (before the prologue), not sunk to its first use
+  asm volatile("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Lane (g, c)'s quants of weight row n = n0 + g for chunks ch0 .. ch0 + kGemvBatch - 1 (those
+// below ce): k = 64 ch + 16c .. +15, and the scale of their Q8 block.
+__device__ __forceinline__ void gemv_load(GemvBatch& b, const GemvArgs& a, int n, int c, int ch0, int ce) {
+  const int kb = a.K / kBlock;
+#pragma unroll
+  for (int u = 0; u < kGemvBatch; ++u) {
+    const int ch = ch0 + u;
+    const int k = ch * kChunk + 16 * c;
+    if (n < a.N && ch < ce && k < a.K) {
+      b.q[u] = ldg_stream(a.q + (size_t)n * a.K + k);
+      b.s[u] = __bfloat162float(a.s[(size_t)n * kb + (k >> 5)]);
+    } else {
+      b.q[u] = make_int4(0, 0, 0, 0);
+      b.s[u] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void gemv_compute(const GemvBatch& b, float (&acc)[4], const __nv_bfloat16* xs, int xs_stride,
+                                             int T, int g, int c, int ch0, int ce) {
+#pragma unroll
+  for (int u = 0; u < kGemvBatch; ++u) {
+    const int ch = ch0 + u;
+    if (ch < ce) {  // warp-uniform
+      uint32_t w[8];
+      dequant16(b.q[u], b.s[u], w);
+      uint32_t xa[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+      if (g < T) {
+        const uint4* p = reinterpret_cast<const uint4*>(xs + (size_t)g * xs_stride + ch * kChunk + 16 * c);
+        const uint4 lo = p[0], hi = p[1];
+        xa[0] = lo.x; xa[1] = lo.y; xa[2] = lo.z; xa[3] = lo.w;
+        xa[4] = hi.x; xa[5] = hi.y; xa[6] = hi.z; xa[7] = hi.w;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint32_t af[4] = {xa[2 * t], 0u, xa[2 * t + 1], 0u};  // rows 8..15 of A are zero
+        mma_bf16(acc, af, w[2 * t], w[2 * t + 1]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kGemvThreads, kGemvCtasPerSm) q8_gemv_kernel(GemvArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [T, K]
-  __shared__ float red[kGemvWarps][T];
-  __shared__ float row_scale[T];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [T, xs_stride]
+  __shared__ __align__(16) float red[2][kGemvWarps][kGemvRows][kGemvRows];
+  __shared__ float nred[kGemvWarps][kMaxRows];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int T = a.T, N = a.N, K = a.K;
+  const int nch = (K + kChunk - 1) / kChunk;
+  const int kpad = nch * kChunk;
+  const int xs_stride = kpad + 8;  // 16 bytes of padding: conflict-free 16-byte reads of 8 rows
+  int cb, ce;
+  split_range(nch, kGemvWarps, warp, cb, ce);
+  const int nb = ((nch + kGemvWarps - 1) / kGemvWarps + kGemvBatch - 1) / kGemvBatch;  // batches a group
+  const int ngroups = (N + kGemvRows - 1) / kGemvRows;
+  const int mine = ngroups > (int)blockIdx.x ? (ngroups - (int)blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const int nsteps = mine * nb;
 
-  if (norm_w != nullptr) {
-    float ss[T];
+  // x (and norm_w) into shared memory with cp.async: one round trip
+  const int per_row = kpad / 8;  // 16-byte vectors a staged row
+  for (int i = tid; i < T * per_row; i += kGemvThreads) {
+    const int t = i / per_row;
+    const int k = (i - t * per_row) * 8;
+    __nv_bfloat16* dst = xs + t * xs_stride + k;
+    if (k < K) {
+      cp_async16(dst, a.x + (size_t)t * K + k, 16);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  cp_async_commit();
+  // the weight stream starts right behind the small x copies (L2-resident after the first CTA),
+  // so the prologue below runs while the weights are in flight
+  GemvBatch b0, b1;  // two batches: one in flight while the other is used
+  auto step_at = [&](int st, int& n0, int& ch0) {
+    const int gi = st / nb;
+    n0 = ((int)blockIdx.x + gi * (int)gridDim.x) * kGemvRows;
+    ch0 = cb + (st - gi * nb) * kGemvBatch;
+  };
+  auto load_step = [&](GemvBatch& b, int st) {
+    if (st < nsteps) {
+      int n0, ch0;
+      step_at(st, n0, ch0);
+      gemv_load(b, a, n0 + g, c, ch0, ce);
+    }
+  };
+  load_step(b0, 0);
+  // norm_w of this thread's first kNormVecs 8-wide vectors k = 8 (tid + j * threads), loaded
+  // while x lands and the sums of squares run
+  float4 nwr[kNormVecs][2];
+  if (a.norm_w != nullptr) {
 #pragma unroll
-    for (int t = 0; t < T; ++t) ss[t] = 0.f;
-    for (int k = tid; k < K; k += kGemvThreads) {
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        float v = __bfloat162float(x[t * K + k]);
-        ss[t] = fmaf(v, v, ss[t]);
+    for (int j = 0; j < kNormVecs; ++j) {
+      const int k = 8 * (tid + j * kGemvThreads);
+      if (k < K) {
+        nwr[j][0] = __ldg(reinterpret_cast<const float4*>(a.norm_w + k));
+        nwr[j][1] = __ldg(reinterpret_cast<const float4*>(a.norm_w + k) + 1);
       }
     }
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      float v = ss[t];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][t] = v;
-    }
-    __syncthreads();
-    if (tid < T) {
-      float total = 0.f;
-      for (int w = 0; w < kGemvWarps; ++w) total += red[w][tid];
-      row_scale[tid] = 1.0f / sqrtf(total / (float)K + eps);
-    }
-    __syncthreads();
-    for (int i = tid; i < T * K; i += kGemvThreads) {
-      const int t = i / K;
-      const int k = i - t * K;
-      float v = __bfloat162float(x[i]) * row_scale[t];
-      xs[i] = __float2bfloat16_rn(v * norm_w[k]);
-    }
-  } else {
-    const uint4* src = reinterpret_cast<const uint4*>(x);
-    uint4* dst = reinterpret_cast<uint4*>(xs);
-    const int n16 = T * K / 8;  // 8 bf16 per 16 bytes; K % 32 == 0
-    for (int i = tid; i < n16; i += kGemvThreads) dst[i] = src[i];
   }
+
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int kb = K / kBlock;
-  const int chunks = K / 16;
-  for (int n = blockIdx.x * kGemvWarps + warp; n < N; n += gridDim.x * kGemvWarps) {
-    const int8_t* qrow = q + (size_t)n * K;
-    const __nv_bfloat16* srow = s + (size_t)n * kb;
-    float acc[T];
+  if (a.norm_w != nullptr) {
+    // each row's sum of squares: 8 values a thread and vector, vectors strided over the threads,
+    // then the warps' sums in warp order (the same order for every T)
+    float ss[kMaxRows];
 #pragma unroll
-    for (int t = 0; t < T; ++t) acc[t] = 0.f;
+    for (int t = 0; t < kMaxRows; ++t) ss[t] = 0.f;
+    for (int k = tid * 8; k < K; k += kGemvThreads * 8) {
+#pragma unroll
+      for (int t = 0; t < kMaxRows; ++t) {
+        if (t < T) {
+          const uint4 v = *reinterpret_cast<const uint4*>(xs + t * xs_stride + k);
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(h[j]);
+            ss[t] = fmaf(f.x, f.x, ss[t]);
+            ss[t] = fmaf(f.y, f.y, ss[t]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kMaxRows; ++t) {
+      if (t < T) {  // uniform: rows past T skip their shuffles
+        float v = ss[t];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) nred[warp][t] = v;
+      }
+    }
+    __syncthreads();
+    float rs[kMaxRows];  // every thread sums the warps' partials in warp order: the same scale
+#pragma unroll
+    for (int t = 0; t < kMaxRows; ++t) {
+      if (t < T) {
+        float total = 0.f;
+        for (int w = 0; w < kGemvWarps; ++w) total += nred[w][t];
+        rs[t] = 1.0f / sqrtf(total / (float)K + a.eps);
+      }
+    }
+    // normalise in place: vector k of every row, with its norm_w in registers
+    for (int j = 0, k = tid * 8; k < K; ++j, k += kGemvThreads * 8) {
+      float wk[8];
+      float4 w0, w1;
+      if (j < kNormVecs) {
+#pragma unroll
+        for (int jj = 0; jj < kNormVecs; ++jj) {  // static indexing of the prefetched vectors
+          if (jj == j) {
+            w0 = nwr[jj][0];
+            w1 = nwr[jj][1];
+          }
+        }
+      } else {
+        w0 = __ldg(reinterpret_cast<const float4*>(a.norm_w + k));
+        w1 = __ldg(reinterpret_cast<const float4*>(a.norm_w + k) + 1);
+      }
+      wk[0] = w0.x; wk[1] = w0.y; wk[2] = w0.z; wk[3] = w0.w;
+      wk[4] = w1.x; wk[5] = w1.y; wk[6] = w1.z; wk[7] = w1.w;
+#pragma unroll
+      for (int t = 0; t < kMaxRows; ++t) {
+        if (t < T) {
+          uint4* p = reinterpret_cast<uint4*>(xs + t * xs_stride + k);
+          uint4 v = *p;
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            h[e] = __floats2bfloat162_rn(f.x * rs[t] * wk[2 * e], f.y * rs[t] * wk[2 * e + 1]);
+          }
+          *p = v;
+        }
+      }
+    }
+    __syncthreads();
+  }
 
-    for (int c = lane; c < chunks; c += 32) {
-      const int4 qv = *reinterpret_cast<const int4*>(qrow + c * 16);
-      const float sc = __bfloat162float(srow[c >> 1]);
-      const int8_t* qb = reinterpret_cast<const int8_t*>(&qv);
-      float w[16];
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int buf = 0;
+  // after a group's last batch: the warps' partials summed in warp order, then the epilogue
+  auto finish = [&](int st) {
+    if ((st + 1) % nb != 0) return;
+    int n0, ch0;
+    step_at(st, n0, ch0);
+    *reinterpret_cast<float2*>(&red[buf][warp][g][2 * c]) = make_float2(acc[0], acc[1]);
+    acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+    __syncthreads();
+    if (tid < kGemvRows * kGemvRows) {
+      const int t = tid >> 3;
+      const int n = n0 + (tid & 7);
+      if (t < T && n < N) {
+        float v = red[buf][0][t][tid & 7];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) w[i] = bf16_round((float)qb[i] * sc);
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const uint4* xp = reinterpret_cast<const uint4*>(xs + t * K + c * 16);
-        uint4 xa = xp[0];
-        uint4 xb = xp[1];
-        const __nv_bfloat162* xa2 = reinterpret_cast<const __nv_bfloat162*>(&xa);
-        const __nv_bfloat162* xb2 = reinterpret_cast<const __nv_bfloat162*>(&xb);
-        float a = acc[t];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float2 f = __bfloat1622float2(xa2[i]);
-          a = fmaf(w[2 * i], f.x, a);
-          a = fmaf(w[2 * i + 1], f.y, a);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float2 f = __bfloat1622float2(xb2[i]);
-          a = fmaf(w[8 + 2 * i], f.x, a);
-          a = fmaf(w[8 + 2 * i + 1], f.y, a);
-        }
-        acc[t] = a;
+        for (int w = 1; w < kGemvWarps; ++w) v += red[buf][w][t][tid & 7];
+        if (a.residual != nullptr) v = bf16_round(__bfloat162float(a.residual[(size_t)t * N + n]) + bf16_round(v));
+        a.y[(size_t)t * N + n] = v;
       }
     }
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      float v = acc[t];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      acc[t] = v;
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        float v = acc[t];
-        if (residual != nullptr) {
-          v = bf16_round(__bfloat162float(residual[(size_t)t * N + n]) + bf16_round(v));
-        }
-        y[(size_t)t * N + n] = v;
-      }
-    }
+    buf ^= 1;  // the next group writes the other buffer; this one is read before the next barrier
+  };
+
+  auto run_step = [&](const GemvBatch& b, int st) {
+    int n0, ch0;
+    step_at(st, n0, ch0);
+    gemv_compute(b, acc, xs, xs_stride, T, g, c, ch0, ce);
+    finish(st);
+  };
+  for (int st = 0; st < nsteps; st += 2) {
+    load_step(b1, st + 1);
+    run_step(b0, st);
+    if (st + 1 >= nsteps) break;
+    load_step(b0, st + 2);
+    run_step(b1, st + 1);
   }
 }
 
-template <int T>
-cudaError_t launch_gemv(const void* x, const void* q, const void* s, const void* norm_w,
-                        const void* residual, void* y, int N, int K, float eps,
-                        cudaStream_t stream, int num_sms) {
-  const size_t smem = (size_t)T * K * sizeof(__nv_bfloat16);
-  // the static red/row_scale arrays count against the same 48 KB default
-  const size_t static_smem = sizeof(float) * (kGemvWarps + 1) * T;
+size_t gemv_smem_bytes(int T, int K) {
+  const int kpad = (K + kChunk - 1) / kChunk * kChunk;
+  return (size_t)T * (kpad + 8) * sizeof(__nv_bfloat16);
+}
+
+cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream, int num_sms) {
+  const size_t smem = gemv_smem_bytes(a.T, a.K);
+  // the static arrays count against the same limit as the dynamic buffer
+  const size_t static_smem = sizeof(float) * (2 * kGemvWarps * kGemvRows * kGemvRows + kGemvWarps * kMaxRows);
   if (smem + static_smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        q8_gemv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(q8_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  int blocks = (N + kGemvWarps - 1) / kGemvWarps;
-  const int cap = num_sms * 8;
-  if (blocks > cap) blocks = cap;
-  q8_gemv_kernel<T><<<blocks, kGemvThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(norm_w),
-      static_cast<const __nv_bfloat16*>(residual), static_cast<float*>(y), N, K, eps);
+  const int ngroups = (a.N + kGemvRows - 1) / kGemvRows;
+  // with the norm prologue every CTA stages and normalises x again: fewer CTAs, more row groups
+  // each (measured on the decode shapes; the sum order does not depend on the grid)
+  int blocks = num_sms * (a.norm_w != nullptr ? kGemvCtasPerSm / 2 : kGemvCtasPerSm);
+  if (blocks > ngroups) blocks = ngroups;
+  q8_gemv_kernel<<<blocks, kGemvThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// T > 8: tiled WMMA kernel
+// T > 8: pipelined tile kernel, K split over a cluster
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 32;
-constexpr int kPad = 8;  // keeps WMMA leading dims a multiple of 8 and rows 16-byte aligned
-constexpr int kMmaThreads = 128;
+constexpr int kTileM = 64;
+constexpr int kStages = 4;
+constexpr int kXStride = kChunk + 8;  // bf16 a row of the x tile: 144 bytes, conflict-free 16-byte reads
+constexpr int kQStride = kChunk;      // int8 a row of the quant tile
+constexpr int kMaxSplits = 8;         // portable cluster size
+constexpr int kFillCtas = 96;         // CTAs of one row tile up to which the split doubles
+constexpr int kMinSplitChunks = 4;    // at least 256 of K a split
+constexpr int kTileWidth = 128;       // columns a tile of the shipped kernel (the sweep also runs 64 and 256)
 
-__global__ void __launch_bounds__(kMmaThreads) q8_mma_kernel(
-    const __nv_bfloat16* __restrict__ x,  // [T, K]
-    const int8_t* __restrict__ q,         // [N, K]
-    const __nv_bfloat16* __restrict__ s,  // [N, K/32]
-    float* __restrict__ y,                // [T, N]
-    int T, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[kBM][kBK + kPad];
-  __shared__ __align__(32) __nv_bfloat16 Bs[kBN][kBK + kPad];
-  __shared__ __align__(32) float Cs[kBM][kBN + 4];
+// A tile of 64 rows by BN = 32 * W columns: W warps, each all 64 rows by 32 columns.
+template <int W>
+struct Tile {
+  static constexpr int kN = 32 * W;
+  static constexpr int kThreads = 32 * W;
+  static constexpr int kPartStride = kN + 8;
+  struct Stage {
+    __nv_bfloat16 x[kTileM][kXStride];
+    int8_t q[kN][kQStride];
+    float sc[kN][2];
+  };
+  static constexpr size_t kSmem = sizeof(Stage) * kStages;
+  static_assert(sizeof(float) * kTileM * kPartStride <= kSmem, "the partial tile reuses the ring");
+  static_assert(kStages == 4, "the scales are stored two steps after their load, one before their use");
+};
+
+// The tile kernel's split count: a function of (N, K) only. It doubles while one row tile's CTAs
+// stay within kFillCtas and every split keeps kMinSplitChunks chunks (exp_q8_split_sweep: at
+// 64-192 rows the narrow outputs want 8 splits and the wide ones 2-4; at thousands of rows every
+// split costs time, so the wide outputs, whose row tile already fills the card, stop at 2).
+int tile_splits(int N, int K) {
+  const int ntiles = (N + kTileWidth - 1) / kTileWidth;
+  const int nch = (K + kChunk - 1) / kChunk;
+  int s = 1;
+  while (s < kMaxSplits && ntiles * 2 * s <= kFillCtas && nch / (2 * s) >= kMinSplitChunks) s *= 2;
+  return s;
+}
+
+struct TileArgs {
+  const __nv_bfloat16* x;  // [T, K]
+  const int8_t* q;         // [N, K]
+  const __nv_bfloat16* s;  // [N, K/32]
+  float* y;                // [T, N]
+  int T, N, K, splits;
+};
+
+// Each dequantised weight feeds four 16-row mma tiles, and each 16-byte read of x four 8-column ones.
+// Three CTAs an SM at width 128 (<= 168 registers): the chunk loop is latency-bound at two.
+template <int W>
+__global__ void __launch_bounds__(Tile<W>::kThreads, W == 4 ? 3 : W < 8 ? 8 / W : 1) q8_tile_kernel(TileArgs a) {
+  using Stage = typename Tile<W>::Stage;
+  constexpr int kN = Tile<W>::kN;
+  constexpr int kThreads = Tile<W>::kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Stage* ring = reinterpret_cast<Stage*>(smem_raw);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;  // 0..1: 32-row half of the tile
-  const int wn = warp & 1;   // 0..1: 32-column half of the tile
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+  const int lane = tid & 31;
+  const int wn = tid >> 5;  // the warp's 32 columns
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int T = a.T, N = a.N, K = a.K, S = a.splits;
+  const int rank = (int)blockIdx.x % S;
+  const int n0 = ((int)blockIdx.x / S) * kN;
+  const int m0 = (int)blockIdx.y * kTileM;
   const int kb = K / kBlock;
+  const int nch = (K + kChunk - 1) / kChunk;
+  int kbeg, kend;
+  split_range(nch, S, rank, kbeg, kend);
+  const int nt = kend - kbeg;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // this thread's scales of each chunk: row tid of the tile, both Q8 blocks
+  auto scale_of = [&](int ch, int blk) -> float {
+    const int n = n0 + tid;
+    const int b = ch * 2 + blk;
+    return (n < N && b < kb) ? __bfloat162float(a.s[(size_t)n * kb + b]) : 0.f;
+  };
+  auto issue = [&](int ch, Stage& st) {
+    const int k0 = ch * kChunk;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // A tile: 64 rows x 32 bf16 = 256 16-byte vectors, two per thread.
-    for (int i = tid; i < kBM * kBK / 8; i += kMmaThreads) {
-      const int r = i >> 2;
-      const int c = (i & 3) * 8;
-      const int gm = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < T) v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + c);
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
+    for (int i = 0; i < (kTileM * kChunk / 8) / kThreads; ++i) {  // x: 8 vectors of 16 bytes a row
+      const int idx = tid + i * kThreads;
+      const int r = idx >> 3;
+      const int k = k0 + (idx & 7) * 8;
+      const bool ok = m0 + r < T && k < K;
+      cp_async16(&st.x[r][(idx & 7) * 8], ok ? a.x + (size_t)(m0 + r) * K + k : a.x, ok ? 16 : 0);
     }
-    // B tile: 64 rows x 32 int8 = one Q8 block per row; each thread dequantises 16 quants.
-    {
-      const int r = tid >> 1;
-      const int c = (tid & 1) * 16;
-      const int gn = n0 + r;
-      uint32_t packed[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) packed[i] = 0u;
-      if (gn < N) {
-        const int4 qv = *reinterpret_cast<const int4*>(q + (size_t)gn * K + k0 + c);
-        const float sc = __bfloat162float(s[(size_t)gn * kb + k0 / kBlock]);
-        const int8_t* qb = reinterpret_cast<const int8_t*>(&qv);
+    for (int i = 0; i < (kN * kChunk / 16) / kThreads; ++i) {  // quants: 4 vectors a row
+      const int idx = tid + i * kThreads;
+      const int r = idx >> 2;
+      const int k = k0 + (idx & 3) * 16;
+      const bool ok = n0 + r < N && k < K;
+      cp_async16(&st.q[r][(idx & 3) * 16], ok ? a.q + (size_t)(n0 + r) * K + k : a.q, ok ? 16 : 0);
+    }
+  };
+
+  // prologue: the first kStages - 1 chunks in flight, their scales stored directly
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          // .x (lower address) holds element 2i, .y element 2i+1
-          __nv_bfloat162 h = __floats2bfloat162_rn((float)qb[2 * i] * sc, (float)qb[2 * i + 1] * sc);
-          packed[i] = *reinterpret_cast<uint32_t*>(&h);
-        }
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < nt) {
+      issue(kbeg + p, ring[p]);
+      ring[p].sc[tid][0] = scale_of(kbeg + p, 0);
+      ring[p].sc[tid][1] = scale_of(kbeg + p, 1);
+    }
+    cp_async_commit();
+  }
+  // the scales of chunk i + kStages - 1 are loaded at step i and stored at step i + 2 (two
+  // chunks of compute hide the load); old holds step i - 1's, young step i's
+  float old0 = 0.f, old1 = 0.f, young0 = 0.f, young1 = 0.f;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of chunk i have landed
+    __syncthreads();               // everyone's have; everyone is done with chunk i - 1's stage
+    if (i >= 2 && i + kStages - 3 < nt) {  // chunk i + 1, loaded at step i - 2
+      ring[(i + kStages - 3) % kStages].sc[tid][0] = old0;
+      ring[(i + kStages - 3) % kStages].sc[tid][1] = old1;
+    }
+    old0 = young0;
+    old1 = young1;
+    if (i + kStages - 1 < nt) {
+      issue(kbeg + i + kStages - 1, ring[(i + kStages - 1) % kStages]);
+      young0 = scale_of(kbeg + i + kStages - 1, 0);
+      young1 = scale_of(kbeg + i + kStages - 1, 1);
+    }
+    cp_async_commit();
+
+    const Stage& st = ring[i % kStages];
+    uint32_t w[4][8];  // [8-column tile][k 16c .. 16c+15 as bf16 pairs]
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int r = wn * 32 + nj * 8 + g;
+      dequant16(*reinterpret_cast<const int4*>(&st.q[r][16 * c]), st.sc[r][c >> 1], w[nj]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      uint32_t xa[2][8];  // rows g and g + 8 of the 16-row tile, k 16c .. 16c+15 as bf16 pairs
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4* p = reinterpret_cast<const uint4*>(&st.x[mi * 16 + h * 8 + g][16 * c]);
+        const uint4 lo = p[0], hi = p[1];
+        xa[h][0] = lo.x; xa[h][1] = lo.y; xa[h][2] = lo.z; xa[h][3] = lo.w;
+        xa[h][4] = hi.x; xa[h][5] = hi.y; xa[h][6] = hi.z; xa[h][7] = hi.w;
       }
-      uint4* dst = reinterpret_cast<uint4*>(&Bs[r][c]);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint32_t af[4] = {xa[0][2 * t], xa[1][2 * t], xa[0][2 * t + 1], xa[1][2 * t + 1]};
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], af, w[nj][2 * t], w[nj][2 * t + 1]);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], kBK + kPad);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[wn * 32 + j * 16][kk], kBK + kPad);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
+  if (S == 1) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16], acc[i][j], kBN + 4,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < kBM * kBN; i += kMmaThreads) {
-    const int r = i / kBN;
-    const int c = i - r * kBN;
-    const int gm = m0 + r;
-    const int gn = n0 + c;
-    if (gm < T && gn < N) y[(size_t)gm * N + gn] = Cs[r][c];
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + mi * 16 + h * 8 + g;
+          const int n = n0 + wn * 32 + nj * 8 + 2 * c;
+          if (m < T) {
+            float* dst = a.y + (size_t)m * N + n;
+            if (n + 1 < N && (N & 1) == 0) {
+              *reinterpret_cast<float2*>(dst) = make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+            } else {
+              if (n < N) dst[0] = acc[mi][nj][2 * h];
+              if (n + 1 < N) dst[1] = acc[mi][nj][2 * h + 1];
+            }
+          }
+        }
+    return;
   }
+
+  // S > 1: partial tiles through distributed shared memory, summed in rank order
+  constexpr int kPart = Tile<W>::kPartStride;
+  cg::cluster_group cluster = cg::this_cluster();
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the partial tile now
+  float* part = reinterpret_cast<float*>(smem_raw);  // [kTileM][kPart]
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mi * 16 + h * 8 + g;
+        *reinterpret_cast<float2*>(&part[r * kPart + wn * 32 + nj * 8 + 2 * c]) =
+            make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+      }
+  cluster.sync();  // every rank's partial is written
+  int r0, r1;
+  split_range(kTileM, S, rank, r0, r1);  // this rank's rows of the tile
+  for (int idx = tid; idx < (r1 - r0) * (kN / 4); idx += kThreads) {
+    const int r = r0 + idx / (kN / 4);
+    const int col = (idx % (kN / 4)) * 4;
+    float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0) + r * kPart + col);
+    for (int p = 1; p < S; ++p) {
+      const float4 u = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, p) + r * kPart + col);
+      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    }
+    const int m = m0 + r;
+    if (m < T) {
+      const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n0 + col + e < N) a.y[(size_t)m * N + n0 + col + e] = vals[e];
+    }
+  }
+  cluster.sync();  // partners are done reading this CTA's shared memory
+}
+
+// The (width, cluster size) pairs the card was found to hold at least one cluster of
+// (cudaOccupancyMaxActiveClusters), so that a launch asks once.
+std::mutex g_fit_lock;
+bool g_fits[3][kMaxSplits + 1] = {};  // [width 64, 128, 256][cluster size]
+int g_fit_device = -1;
+
+// With `resident` set, nothing is launched: *resident gets how many clusters of the call's
+// split the card holds at once.
+template <int W>
+cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream, int* resident) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q8_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<W>::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((a.N + Tile<W>::kN - 1) / Tile<W>::kN) * a.splits, (a.T + kTileM - 1) / kTileM, 1);
+  cfg.blockDim = dim3(Tile<W>::kThreads);
+  cfg.dynamicSmemBytes = Tile<W>::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (resident != nullptr) return cudaOccupancyMaxActiveClusters(resident, q8_tile_kernel<W>, &cfg);
+  {
+    std::lock_guard<std::mutex> hold(g_fit_lock);
+    if (g_fit_device != device) {
+      for (auto& row : g_fits)
+        for (bool& f : row) f = false;
+      g_fit_device = device;
+    }
+    constexpr int kw = W == 2 ? 0 : W == 4 ? 1 : 2;
+    if (!g_fits[kw][a.splits]) {
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, q8_tile_kernel<W>, &cfg);
+      if (err != cudaSuccess) return err;
+      if (clusters < 1) return cudaErrorLaunchOutOfResources;  // refused, never shrunk
+      g_fits[kw][a.splits] = true;
+    }
+  }
+  err = cudaLaunchKernelEx(&cfg, q8_tile_kernel<W>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+int num_sms() {
+  static const int count = [] {
+    int device = 0;
+    int n = 132;
+    if (cudaGetDevice(&device) == cudaSuccess) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    return n;
+  }();
+  return count;
+}
+
+int q8_matmul_splits(const void* x, const void* q, const void* s, const void* norm_w, const void* residual, void* y,
+                     int T, int N, int K, float eps, int splits, int width, void* stream_ptr, int* resident) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (T <= 0 || N <= 0 || K <= 0 || K % kBlock != 0) return (int)cudaErrorInvalidValue;
+  if (T > kMaxRows || resident != nullptr) {
+    if (norm_w != nullptr || residual != nullptr) return (int)cudaErrorInvalidValue;
+    if (splits < 1 || splits > kMaxSplits || (splits & (splits - 1)) != 0) return (int)cudaErrorInvalidValue;
+    TileArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+               static_cast<const __nv_bfloat16*>(s), static_cast<float*>(y), T, N, K, splits};
+    if (width == 64) return (int)launch_tile<2>(a, stream, resident);
+    if (width == 128) return (int)launch_tile<4>(a, stream, resident);
+    if (width == 256) return (int)launch_tile<8>(a, stream, resident);
+    return (int)cudaErrorInvalidValue;
+  }
+  GemvArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+             static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(norm_w),
+             static_cast<const __nv_bfloat16*>(residual), static_cast<float*>(y), T, N, K, eps};
+  return (int)launch_gemv(a, stream, num_sms());
 }
 
 }  // namespace
@@ -301,32 +685,24 @@ __global__ void __launch_bounds__(kMmaThreads) q8_mma_kernel(
 extern "C" int lwt_q8_matmul(const void* x, const void* q, const void* s, const void* norm_w,
                              const void* residual, void* y, int T, int N, int K, float eps,
                              void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (T <= 0 || N <= 0 || K <= 0 || K % kBlock != 0) return (int)cudaErrorInvalidValue;
-  if (T > 8) {
-    if (norm_w != nullptr || residual != nullptr) return (int)cudaErrorInvalidValue;
-    dim3 grid((N + kBN - 1) / kBN, (T + kBM - 1) / kBM);
-    q8_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-        static_cast<const __nv_bfloat16*>(s), static_cast<float*>(y), T, N, K);
-    return (int)cudaGetLastError();
-  }
-  static const int num_sms = [] {
-    int device = 0;
-    int count = 132;
-    if (cudaGetDevice(&device) == cudaSuccess) {
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
-    }
-    return count;
-  }();
-  switch (T) {
-    case 1: return (int)launch_gemv<1>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-    case 2: return (int)launch_gemv<2>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-    case 3: return (int)launch_gemv<3>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-    case 4: return (int)launch_gemv<4>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-    case 5: return (int)launch_gemv<5>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-    case 6: return (int)launch_gemv<6>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-    case 7: return (int)launch_gemv<7>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-    default: return (int)launch_gemv<8>(x, q, s, norm_w, residual, y, N, K, eps, stream, num_sms);
-  }
+  return q8_matmul_splits(x, q, s, norm_w, residual, y, T, N, K, eps, tile_splits(N, K), kTileWidth,
+                          stream_ptr, nullptr);
+}
+
+// Launches nothing. *splits and *width get the tile kernel's split count (its cluster size) for
+// (N, K) and its tile width, *clusters how many such clusters the card holds at once.
+extern "C" int lwt_q8_tile_plan(int N, int K, int* splits, int* width, int* clusters) {
+  if (N <= 0 || K <= 0 || K % kBlock != 0) return (int)cudaErrorInvalidValue;
+  *splits = tile_splits(N, K);
+  *width = kTileWidth;
+  return q8_matmul_splits(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, kTileM + 1, N, K, 0.f, *splits,
+                          *width, nullptr, clusters);
+}
+
+// The tile kernel (T > 8) at a given split count (1, 2, 4 or 8) and width (64, 128 or 256): the sweep
+// behind tile_splits and kTileWidth.
+extern "C" int lwt_q8_matmul_tile(const void* x, const void* q, const void* s, void* y, int T, int N, int K,
+                                  int splits, int width, void* stream_ptr) {
+  if (T <= kMaxRows) return (int)cudaErrorInvalidValue;
+  return q8_matmul_splits(x, q, s, nullptr, nullptr, y, T, N, K, 0.f, splits, width, stream_ptr, nullptr);
 }

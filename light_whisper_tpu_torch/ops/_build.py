@@ -103,6 +103,10 @@ def library() -> ctypes.CDLL:
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.lwt_q8_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
             lib.lwt_q8_matmul.restype = ci
+            lib.lwt_q8_tile_plan.argtypes = [ci, ci] + [ctypes.POINTER(ci)] * 3
+            lib.lwt_q8_tile_plan.restype = ci
+            lib.lwt_q8_matmul_tile.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+            lib.lwt_q8_matmul_tile.restype = ci
             lib.lwt_decode_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_decode_attention.restype = ci
             lib.lwt_decode_attention_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]

@@ -12,10 +12,18 @@ one CUDA kernel family (``csrc/q8_matmul.cu``):
 A CPU tensor takes the plain PyTorch version in this module; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches per form.
 Scales are bf16 ``s[out, in/32]`` read directly by the kernel.
+
+The kernel cuts K into chunks of 64 and the chunks into ``S`` contiguous
+splits, sums each split's partial in f32 and the partials in rank order
+(:func:`q8_matmul_split_plain` is that schedule in torch). ``S`` is
+:data:`GEMV_SPLITS` at T <= 8 and :func:`tile_splits` of (N, K) above: never
+a function of T, so a row's output is bitwise the same whether it comes in a
+call of its own or among other streams' rows.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -24,6 +32,12 @@ from light_whisper_tpu_torch.ops import _build
 
 Q8_0_BLOCK = 32
 FUSED_MAX_ROWS = 8
+CHUNK = 64  # K a chunk of the kernel's schedule: two Q8 blocks
+GEMV_SPLITS = 4  # K splits of every call at T <= 8 (the GEMV's warps)
+TILE_N = 128  # output columns a tile of the T > 8 kernel
+MAX_SPLITS = 8  # the largest cluster the tile kernel launches
+FILL_CTAS = 96  # CTAs of one row tile up to which the split doubles
+MIN_SPLIT_CHUNKS = 4  # chunks every split keeps (256 of K)
 
 LAUNCHES = {"q8_matmul": 0, "q8_matmul_stacked": 0, "q8_matmul_stacked_fused": 0}
 
@@ -50,6 +64,47 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * scale * weight.float()).to(x.dtype)
 
 
+def tile_splits(N: int, K: int) -> int:
+    """The K splits (the cluster size) of the T > 8 kernel for ``N`` outputs
+    over ``K`` inputs: doubled, up to :data:`MAX_SPLITS`, while one row tile's
+    CTAs stay within :data:`FILL_CTAS` and every split keeps
+    :data:`MIN_SPLIT_CHUNKS` chunks. A function of (N, K) only; the kernel's
+    ``tile_splits`` in ``csrc/q8_matmul.cu`` is the same rule, picked by
+    ``scripts/exp_q8_split_sweep.py``."""
+    ntiles = -(-N // TILE_N)
+    nch = -(-K // CHUNK)
+    splits = 1
+    while splits < MAX_SPLITS and ntiles * 2 * splits <= FILL_CTAS and nch // (2 * splits) >= MIN_SPLIT_CHUNKS:
+        splits *= 2
+    return splits
+
+
+def schedule_splits(T: int, N: int, K: int) -> int:
+    """The K splits of a call of T rows: :data:`GEMV_SPLITS` for the GEMV
+    (T <= 8), :func:`tile_splits` (N, K) for the tile kernel above."""
+    return GEMV_SPLITS if T <= FUSED_MAX_ROWS else tile_splits(N, K)
+
+
+def split_bounds(K: int, splits: int) -> list:
+    """[lo, hi) of K of each split: contiguous runs of 64-wide chunks, split r
+    taking chunks [r*n/S, (r+1)*n/S) of the n = ceil(K/64)."""
+    nch = -(-K // CHUNK)
+    return [(min(r * nch // splits * CHUNK, K), min((r + 1) * nch // splits * CHUNK, K)) for r in range(splits)]
+
+
+def q8_matmul_split_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, splits: int) -> torch.Tensor:
+    """The kernel's schedule in torch: each split's partial product in f32,
+    the partials summed in rank order (bf16 operands, as
+    :func:`q8_matmul_plain`)."""
+    w = dequantize(q, s).float()
+    xf = x.to(torch.bfloat16).float()
+    acc = None
+    for lo, hi in split_bounds(x.shape[-1], splits):
+        part = torch.matmul(xf[..., lo:hi], w[:, lo:hi].t())
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def q8_matmul_fused_plain(
     x: torch.Tensor,
     q: torch.Tensor,
@@ -57,11 +112,14 @@ def q8_matmul_fused_plain(
     norm_w: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
     residual: Optional[torch.Tensor] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
+    """The fused form's plain version; ``splits`` takes the product through
+    :func:`q8_matmul_split_plain` (the kernel's schedule) instead."""
     x = x.to(torch.bfloat16)  # the kernel takes bf16 activations (the decoder's hidden state)
     if norm_w is not None:
         x = rms_norm(x, norm_w, eps)
-    acc = q8_matmul_plain(x, q, s)
+    acc = q8_matmul_plain(x, q, s) if splits is None else q8_matmul_split_plain(x, q, s, splits)
     if residual is not None:
         # the epilogue rounds the accumulator to bf16 before a bf16 add
         acc = (residual.to(torch.bfloat16) + acc.to(torch.bfloat16)).float()
@@ -99,12 +157,15 @@ def _launch(form, x2, q2, s2, norm_w, eps, residual) -> torch.Tensor:
         _require(T <= FUSED_MAX_ROWS, f"norm prologue takes T <= {FUSED_MAX_ROWS}, got {T}")
         norm_w = norm_w.to(device=dev, dtype=torch.float32).contiguous()
         _require(norm_w.shape == (K,), f"norm_w must be [{K}]")
+        if not _aligned(norm_w):
+            norm_w = norm_w.clone()
     if residual is not None:
         _require(T <= FUSED_MAX_ROWS, f"residual epilogue takes T <= {FUSED_MAX_ROWS}, got {T}")
         residual = residual.to(device=dev, dtype=torch.bfloat16).contiguous()
         _require(residual.shape == (T, N), f"residual must be [{T}, {N}]")
     if T <= FUSED_MAX_ROWS:
-        _require(T * K * 2 <= 227 * 1024, f"x [{T}, {K}] does not fit the kernel's shared memory")
+        staged = T * (-(-K // CHUNK) * CHUNK + 8) * 2  # x rows padded to whole chunks plus 16 bytes
+        _require(staged <= 227 * 1024, f"x [{T}, {K}] does not fit the kernel's shared memory")
     y = torch.empty((T, N), dtype=torch.float32, device=dev)
     lib = _build.library()
     err = lib.lwt_q8_matmul(
@@ -117,6 +178,19 @@ def _launch(form, x2, q2, s2, norm_w, eps, residual) -> torch.Tensor:
     _build.check(err, "lwt_q8_matmul")
     LAUNCHES[form] += 1
     return y
+
+
+def resident_clusters(N: int, K: int) -> int:
+    """How many clusters of :func:`tile_splits` (N, K) CTAs of the T > 8
+    kernel the current card holds at once (launches nothing; needs a GPU).
+    Raises if the kernel's own rule disagrees with :func:`tile_splits`."""
+    splits, width, clusters = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.library().lwt_q8_tile_plan(N, K, ctypes.byref(splits), ctypes.byref(width),
+                                                   ctypes.byref(clusters)), "lwt_q8_tile_plan")
+    _require((splits.value, width.value) == (tile_splits(N, K), TILE_N),
+             f"the kernel tiles {N}x{K} {width.value} wide in {splits.value} splits; this module says "
+             f"{TILE_N} and {tile_splits(N, K)}")
+    return clusters.value
 
 
 def _device_kind(x: torch.Tensor) -> str:

@@ -332,3 +332,98 @@ def test_perm_matmul(cuda, T, N, K, block_k):
     _close(kp.q8_matmul_stacked_perm_2d(xp, qp, s, 0, block_k), q8.q8_matmul_plain(x, q[0], s[0]))
     assert kp.LAUNCHES == {"q8_matmul_perm": before["q8_matmul_perm"] + 1,
                            "q8_matmul_stacked_perm": before["q8_matmul_stacked_perm"] + 1}
+
+
+# -- the redesigned Q8 kernels at their edges: the GEMV (T <= 8) on the tensor
+# cores with a fixed 4-way K split, the tile kernel (T > 8) with a cluster K split
+
+
+def _held_q8(got, x, q, s, T, N, K):
+    """1e-4 of max|ref| from the plain version and from the kernel's split schedule."""
+    splits = q8.schedule_splits(T, N, K)
+    _close(got, q8.q8_matmul_split_plain(x, q, s, splits))
+    _close(got, q8.q8_matmul_plain(x, q, s))
+
+
+@pytest.mark.parametrize("T,N,K", [(9, 1000, 1024), (65, 1000, 1024), (6656, 896, 7680), (65, 896, 7680),
+                                   (9, 896, 7680), (200, 130, 1056), (70, 4096, 1024), (96, 6144, 1024)])
+def test_tile_kernel_edges(cuda, T, N, K):
+    """Ragged row tiles (T = 9, 65), N off the 64-wide tile, K = 7680 over the
+    cluster's split edges, a ragged last K chunk (1056), and S = 1/2/4/8."""
+    q, s = _weights(1, N, K, seed=T + N, device=cuda)
+    x = torch.randn(T, K, device=cuda).to(torch.bfloat16)
+    before = q8.LAUNCHES["q8_matmul"]
+    got = q8.q8_matmul(x, q[0], s[0])
+    assert q8.LAUNCHES["q8_matmul"] == before + 1
+    assert got.shape == (T, N) and got.dtype == torch.float32
+    _held_q8(got, x, q[0], s[0], T, N, K)
+
+
+@pytest.mark.parametrize("with_norm,with_residual", [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["plain", "norm", "residual", "both"])
+@pytest.mark.parametrize("T", list(range(1, 9)))
+def test_gemv_rows_one_to_eight(cuda, T, with_norm, with_residual):
+    """Every T the GEMV takes, with and without the prologue and the epilogue,
+    at the decoder's down shape (K = 3072: three register batches a warp)."""
+    N, K = 1024, 3072
+    q, s = _weights(2, N, K, seed=T, device=cuda)
+    x = torch.randn(T, K, device=cuda).to(torch.bfloat16)
+    norm_w = 1.0 + 0.1 * torch.randn(K, device=cuda) if with_norm else None
+    res = torch.randn(T, N, device=cuda).to(torch.bfloat16) if with_residual else None
+    got = q8.q8_matmul_stacked_fused(x, q, s, 1, norm_w=norm_w, residual=res)
+    torch.cuda.synchronize()
+    for splits in (None, q8.GEMV_SPLITS):
+        want = q8.q8_matmul_fused_plain(x, q[1], s[1], norm_w, 1e-6, res, splits=splits)
+        if with_residual:
+            # bf16(acc) may round one ulp apart, which can carry the output into the next binade:
+            # one bf16 ulp of the largest of the two outputs and the accumulator
+            acc = q8.q8_matmul_fused_plain(x, q[1], s[1], norm_w, 1e-6, None, splits=splits)
+            mag = torch.maximum(torch.maximum(want.abs(), got.abs()), acc.abs()).clamp_min(1e-30)
+            slack = 1e-3 * max(1.0, float(acc.abs().max())) if with_norm else 0.0
+            assert bool(((got - want).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7) * 1.0001 + slack).all())
+        else:
+            _close(got, want, rel=1e-3 if with_norm else 1e-4)
+
+
+def test_gemv_rows_are_independent_bitwise(cuda):
+    """Each row of a T = 2, 4, 8 call equals a T = 1 call on that row alone,
+    with the norm and the residual on: the GEMV sums in one order for every T."""
+    N, K = 4096, 1024
+    q, s = _weights(2, N, K, seed=1, device=cuda)
+    x = torch.randn(8, K, device=cuda).to(torch.bfloat16)
+    res = torch.randn(8, N, device=cuda).to(torch.bfloat16)
+    norm_w = 1.0 + 0.1 * torch.randn(K, device=cuda)
+    for T in (2, 4, 8):
+        rows = q8.q8_matmul_stacked_fused(x[:T], q, s, 1, norm_w=norm_w, residual=res[:T])
+        for t in range(T):
+            alone = q8.q8_matmul_stacked_fused(x[t:t + 1], q, s, 1, norm_w=norm_w, residual=res[t:t + 1])
+            torch.testing.assert_close(rows[t:t + 1], alone, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,K", [(4096, 1024), (1024, 3072), (896, 7680)])
+def test_tile_rows_are_independent_bitwise(cuda, N, K):
+    """The rows of a T = 64 call equal the same rows inside a T = 192 call,
+    in the first row tile and in the second."""
+    q, s = _weights(1, N, K, seed=2, device=cuda)
+    x = torch.randn(192, K, device=cuda).to(torch.bfloat16)
+    whole = q8.q8_matmul(x, q[0], s[0])
+    for lo in (0, 64):
+        torch.testing.assert_close(whole[lo:lo + 64], q8.q8_matmul(x[lo:lo + 64], q[0], s[0]), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,N,K", [(1, 1024, 1024), (8, 1024, 3072), (9, 1024, 3072), (96, 1024, 1024),
+                                   (6656, 896, 7680)])
+def test_q8_integer_values_are_bitwise_on_both_kernels(cuda, T, N, K):
+    q = torch.randint(-127, 128, (N, K), device=cuda, dtype=torch.int8)
+    s = torch.full((N, K // 32), 0.5, device=cuda, dtype=torch.bfloat16)
+    x = torch.randint(-4, 4, (T, K), device=cuda).to(torch.bfloat16)
+    got = q8.q8_matmul(x, q, s)
+    torch.testing.assert_close(got, q8.q8_matmul_plain(x, q, s), rtol=0, atol=0)
+    torch.testing.assert_close(got, q8.q8_matmul_split_plain(x, q, s, q8.schedule_splits(T, N, K)), rtol=0, atol=0)
+
+
+def test_tile_plan_agrees_with_the_kernel(cuda):
+    """The kernel's own split rule gives tile_splits' values, and the card
+    holds at least one cluster of each."""
+    for N, K in [(4096, 1024), (1024, 2048), (6144, 1024), (1024, 3072), (3584, 896), (896, 7680)]:
+        assert q8.resident_clusters(N, K) >= 1

@@ -212,3 +212,133 @@ def test_build_lists_every_kernel_source_and_needs_nvcc(monkeypatch, tmp_path):
         _build.build()
     assert not (tmp_path / "kernels").exists()  # nothing is created before a compiler is found
 
+
+
+# -- the kernel's K-split schedule (q8_matmul_split_plain) and its chooser -------
+
+# Qwen3-ASR 0.6B's Q8 shapes (N, K): decoder qkv, o, gateup, down, logits head;
+# encoder fc1, fc2, conv_out, and its square projections. The values are the
+# tile kernel's split counts, as chip_smoke.py prints them on each case.
+TILE_SPLITS_06B = {
+    (4096, 1024): 2, (1024, 2048): 8, (6144, 1024): 2, (1024, 3072): 8, (152576, 1024): 1,
+    (3584, 896): 2, (896, 3584): 8, (896, 7680): 8, (896, 896): 2,
+}
+
+
+def test_tile_splits_is_a_function_of_n_and_k_only():
+    import inspect
+
+    assert list(inspect.signature(q8.tile_splits).parameters) == ["N", "K"]
+    assert {shape: q8.tile_splits(*shape) for shape in TILE_SPLITS_06B} == TILE_SPLITS_06B
+    for T in (9, 64, 192, 3968, 6656):
+        for (N, K), splits in TILE_SPLITS_06B.items():
+            assert q8.schedule_splits(T, N, K) == splits
+    for T in range(1, 9):
+        assert q8.schedule_splits(T, 4096, 1024) == q8.GEMV_SPLITS
+
+
+@pytest.mark.parametrize("N", [8, 64, 100, 896, 1024, 4096, 6144, 152576])
+@pytest.mark.parametrize("K", [32, 64, 96, 512, 896, 1024, 2048, 3072, 3584, 7680])
+def test_tile_splits_keeps_whole_chunks_in_every_split(N, K):
+    splits = q8.tile_splits(N, K)
+    assert splits in (1, 2, 4, 8)
+    bounds = q8.split_bounds(K, splits)
+    assert bounds[0][0] == 0 and bounds[-1][1] == K
+    assert all(hi == lo2 for (_lo, hi), (lo2, _hi) in zip(bounds, bounds[1:]))
+    if splits > 1:
+        assert min(hi - lo for lo, hi in bounds) >= q8.MIN_SPLIT_CHUNKS * q8.CHUNK
+        assert -(-N // q8.TILE_N) * splits <= q8.FILL_CTAS
+
+
+def test_chip_smoke_prints_the_chooser_values(monkeypatch):
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(q8, "resident_clusters", lambda N, K: 7)  # the card's answer; no card here
+    for (N, K), splits in TILE_SPLITS_06B.items():
+        assert smoke.q8_schedule(64, N, K) == f"[tile 64x128, S={splits}, 7 clusters resident]"
+        assert smoke.q8_schedule(1, N, K) == f"[GEMV, S={q8.GEMV_SPLITS}]"
+
+
+@pytest.mark.parametrize("T,N,K", [(1, 4096, 1024), (8, 1024, 3072), (9, 1024, 2048), (64, 896, 896),
+                                   (64, 6144, 1024), (13, 896, 7680), (20, 896, 3584), (3, 152576 // 64, 1024)])
+def test_split_plain_matches_plain_and_pallas(T, N, K):
+    """The split schedule at the kernel's S for T rows against the unsplit
+    plain version and the JAX reference (1e-4 of max|ref|): the Pallas kernel
+    in interpret mode where its K tiles (multiples of 512), else the XLA
+    product the JAX package takes for such K (the encoder's 896)."""
+    from light_whisper_tpu.ops.linear import q8_matmul_xla
+
+    q, s = _weights(1, N, K, seed=N + K)
+    x = _bf16_np(np.random.default_rng(T).standard_normal((T, K)))
+    qt, st = _port(q[0], s[0])
+    splits = q8.schedule_splits(T, N, K)
+    got = q8.q8_matmul_split_plain(torch.from_numpy(x), qt, st, splits).numpy()
+    plain = q8.q8_matmul_plain(torch.from_numpy(x), qt, st).numpy()
+    if K % 512 == 0:
+        want = np.asarray(q8_matmul_pallas(jnp.asarray(x), jnp.asarray(q[0]), jnp.asarray(s[0]), interpret=True))
+    else:
+        want = np.asarray(q8_matmul_xla(jnp.asarray(x), jnp.asarray(q[0]), jnp.asarray(s[0]).astype(jnp.bfloat16)))
+    for ref in (plain, want):
+        assert got.shape == ref.shape and got.dtype == np.float32
+        assert np.abs(got - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("K", [1024, 1056, 3072])
+def test_split_plain_is_bitwise_on_integer_values(splits, K):
+    """Integer-valued inputs: every split count (empty splits and a ragged
+    last chunk included) equals the plain version and the JAX reference
+    bitwise (the stacked Pallas kernel; XLA's product at K = 1056, which
+    the Pallas kernel does not tile)."""
+    from light_whisper_tpu.ops.linear import q8_matmul_xla
+
+    rng = np.random.default_rng(K + splits)
+    q = rng.integers(-127, 128, size=(2, 96, K), dtype=np.int8)
+    s = np.full((2, 96, K // 32), 0.5, dtype=np.float16)
+    x = rng.integers(-4, 4, size=(12, K)).astype(np.float32)
+    qt, st = _port(q, s)
+    got = q8.q8_matmul_split_plain(torch.from_numpy(x), qt[1], st[1], splits).numpy()
+    np.testing.assert_array_equal(got, q8.q8_matmul_plain(torch.from_numpy(x), qt[1], st[1]).numpy())
+    if K % 512 == 0:
+        s_t = jnp.asarray(s).astype(jnp.bfloat16).transpose(0, 2, 1)
+        want = np.asarray(q8_matmul_pallas_stacked(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(q), s_t,
+                                                   jnp.int32(1), interpret=True))
+    else:
+        want = np.asarray(q8_matmul_xla(jnp.asarray(x), jnp.asarray(q[1]), jnp.asarray(s[1]).astype(jnp.bfloat16)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("with_norm,with_residual", [(True, False), (False, True), (True, True)],
+                         ids=["norm", "residual", "both"])
+@pytest.mark.parametrize("T,N,K", [(1, 4096, 1024), (8, 1024, 3072), (5, 1024, 2048)])
+def test_fused_split_plain_matches_pallas(T, N, K, with_norm, with_residual):
+    """The fused form at the GEMV's split count against the fused Pallas
+    kernel in interpret mode, under the fused tolerances of the module's
+    other tests."""
+    q, s = _weights(2, N, K, seed=T + N)
+    rng = np.random.default_rng(T)
+    x = _bf16_np(rng.standard_normal((T, K)))
+    norm_w = (1.0 + 0.1 * rng.standard_normal(K)).astype(np.float32) if with_norm else None
+    res = _bf16_np(rng.standard_normal((T, N))) if with_residual else None
+    s_t = jnp.asarray(s).astype(jnp.bfloat16).transpose(0, 2, 1)
+    want = np.asarray(q8_matmul_pallas_stacked_fused(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(q), s_t, jnp.int32(1),
+        norm_w=None if norm_w is None else jnp.asarray(norm_w), eps=1e-6,
+        residual=None if res is None else jnp.asarray(res), interpret=True))
+    qt, st = _port(q, s)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    nt = None if norm_w is None else torch.from_numpy(norm_w)
+    rt = None if res is None else torch.from_numpy(res).to(torch.bfloat16)
+    got = q8.q8_matmul_fused_plain(xt, qt[1], st[1], nt, 1e-6, rt, splits=q8.GEMV_SPLITS).numpy()
+    if with_residual:
+        acc = q8.q8_matmul_fused_plain(xt, qt[1], st[1], nt, 1e-6, None, splits=q8.GEMV_SPLITS).numpy()
+        ulp = _bf16_ulp(np.maximum(np.abs(want), np.abs(acc)))
+        slack = 1e-3 * max(1.0, np.abs(acc).max()) if with_norm else 0.0
+        assert np.all(np.abs(got - want) <= ulp * 1.0001 + slack), np.max(np.abs(got - want) / ulp)
+    else:
+        assert np.abs(got - want).max() <= 1e-4 * max(1.0, np.abs(want).max())
