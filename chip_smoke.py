@@ -11,15 +11,18 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
 3. each kernel against its plain PyTorch version on the card, at Qwen3-ASR
    0.6B shapes (those of the single-pass path included: the encoder's 6,656
    rows at the 512 s bucket, the 3,968-row prompt's projections, decode
-   attention over ~4,000 keys of an 8192-slot cache; the fused decode FFN and
-   the Q8 probes at the decode shapes), with the tolerance stated on each
+   attention over ~4,000 keys of an 8192-slot cache; the fused decode FFN at
+   0.6B and 1.7B widths and the Q8 probes at the decode shapes), with the
+   tolerance stated on each
    line (integer-valued cases bitwise): kernel / plain times from CUDA
    events, the bound (the least time the card could take for the case's
    bytes and operations) and, for the attention kernels, one
    ``scaled_dot_product_attention`` call on the same inputs as a yardstick
-   (decode attention is also held against its split schedule in torch at
-   the kernel's split count, and each case names its clusters and how many
-   of them the card holds at once)
+   (decode attention and flash prefill are also held against their split
+   schedules in torch at the kernel's split count, and each case names its
+   clusters and how many of them the card holds at once; flash prefill and
+   the fused FFN are also checked bitwise run to run, the fused FFN row by
+   row against T=1 calls)
    (no single PyTorch call computes Q8_0 dequant-matmul or the fused FFN;
    ``fused_ffn_step`` is timed beside the decoder's six-launch FFN half);
 4. a narrow model (head dim 128, two query heads per KV head) transcribed on
@@ -44,7 +47,8 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
      whose prefill attention is the flash-prefill kernel, once a layer;
    - fused-ffn: the 12 s request of ``slice`` with ``LWT_FUSED_FFN=1``
      (``fused_ffn_step`` once a layer every decode step), alternated three
-     times with the default route for the decode ms/step of each;
+     times with the default route for the decode ms/step of each; the replies
+     of each route must be identical run to run;
 6. ``engine_cli serve`` in a subprocess: init, one transcribe, exit.
 
 Then the ``nvidia-smi`` line, a JSON line with one entry per kernel and, as
@@ -426,32 +430,47 @@ def phase_kernels(torch):
            0.0, 0.0, bitwise=True)
     del qi, si, xi
 
-    # -- the fused decode FFN (the LWT_FUSED_FFN route), layers cycled ----------
+    # -- the fused decode FFN (the LWT_FUSED_FFN route), layers cycled, at 0.6B and 1.7B widths --
+    def ffn_cases(D, F, gq, gs, dq, ds, label=""):
+        ffn_bytes = D * 2 * F + 2 * F * (D // 32) * 2 + D * F + D * (F // 32) * 2  # quants and scales a layer
+        for T in (1, 8):
+            x = randn(T, D, scale=3.0).to(torch.bfloat16)
+            norm_w = 1.0 + randn(D, scale=0.1)
+
+            def unfused_half(i, x=x, norm_w=norm_w):
+                # the decoder's default FFN half: six launches
+                gateup = q8.q8_matmul_stacked_fused(x, gq, gs, i % L, norm_w=norm_w, eps=eps)
+                gate, up = torch.chunk(gateup, 2, dim=-1)
+                inner = (torch.nn.functional.silu(gate) * up).to(torch.bfloat16)
+                return q8.q8_matmul_stacked_fused(inner, dq, ds, i % L, residual=x).to(torch.bfloat16)
+
+            check("fused_ffn_step", f"T={T} D={D} F={F}{label}",
+                  lambda i: ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, i % L, eps),
+                  lambda i: ffn.fused_ffn_step_plain(x, norm_w, gq, gs, dq, ds, i % L, eps),  # the kernel's tile
+                  calls=L, tol_rel=1e-3, work=(ffn_bytes + T * D * 2 + D * 4 + T * D * 4, 2 * T * 3 * F * D),
+                  yardstick_fn=("six-launch half", unfused_half))
+            again = [ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, 5, eps) for _ in range(2)]
+            record("fused_ffn_step", f"run to run T={T} D={D} F={F}", float((again[0] - again[1]).abs().max()),
+                   0.0, 0.0, 0.0, bitwise=True)
+        x8 = randn(8, D, scale=3.0).to(torch.bfloat16)
+        norm_w = 1.0 + randn(D, scale=0.1)
+        rows = ffn.fused_ffn_step(x8, norm_w, gq, gs, dq, ds, 3, eps)
+        alone = torch.cat([ffn.fused_ffn_step(x8[t:t + 1], norm_w, gq, gs, dq, ds, 3, eps) for t in range(8)])
+        record("fused_ffn_step", f"rows of T=8 vs each row at T=1 D={D} F={F}", float((rows - alone).abs().max()),
+               0.0, 0.0, 0.0, bitwise=True)
+
     gq, gs = stacks["gateup"]
     dq, ds = stacks["down"]
     D, F = proj["down"]
-    ffn_bytes = D * 2 * F + 2 * F * (D // 32) * 2 + D * F + D * (F // 32) * 2  # quants and scales a layer
-    for T in (1, 8):
-        x = randn(T, D, scale=3.0).to(torch.bfloat16)
-        norm_w = 1.0 + randn(D, scale=0.1)
-
-        def unfused_half(i, x=x, norm_w=norm_w):
-            # the decoder's default FFN half: six launches
-            gateup = q8.q8_matmul_stacked_fused(x, gq, gs, i % L, norm_w=norm_w, eps=eps)
-            gate, up = torch.chunk(gateup, 2, dim=-1)
-            inner = (torch.nn.functional.silu(gate) * up).to(torch.bfloat16)
-            return q8.q8_matmul_stacked_fused(inner, dq, ds, i % L, residual=x).to(torch.bfloat16)
-
-        check("fused_ffn_step", f"T={T} D={D} F={F}",
-              lambda i: ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, i % L, eps),
-              lambda i: ffn.fused_ffn_step_plain(x, norm_w, gq, gs, dq, ds, i % L, eps),  # the kernel's tile
-              calls=L, tol_rel=1e-3, work=(ffn_bytes + T * D * 2 + D * 4 + T * D * 4, 2 * T * 3 * F * D),
-              yardstick_fn=("six-launch half", unfused_half))
+    ffn_cases(D, F, gq, gs, dq, ds)
     h = randn(8, D).to(torch.bfloat16)
     check("fused_gateup_silu", f"T=8 D={D} F={F}",
           lambda i: ffn.fused_gateup_silu(h, gq, gs, i % L),
           lambda i: ffn.fused_gateup_silu_plain(h, gq, gs, i % L), calls=L, ulp_or_rel=True,
           work=(2 * F * D + 2 * F * (D // 32) * 2 + 8 * D * 2 + 8 * F * 2, 2 * 8 * 2 * F * D))
+    # Qwen3-ASR 1.7B's decoder FFN: two down row groups a CTA in shared memory
+    D7, F7 = 2048, 6144
+    ffn_cases(D7, F7, *weights(L, 2 * F7, D7), *weights(L, D7, F7), label=" (1.7B widths)")
 
     # -- the Q8 probes at the 0.6B decode shapes, layers cycled -------------------
     bk = cb.PERM_BLOCK_K
@@ -559,9 +578,10 @@ def phase_kernels(torch):
     batched_case(8, 4096, [0, 4095, 37, 2048, 1, 4000, 700, 3000], 8)
 
     # -- flash prefill: prompts of more than 64 rows against caches of >= 8192 --
-    # layers cycled so that the live K/V of each call comes from HBM
+    # layers cycled so that the live K/V of each call comes from HBM; each case also against the
+    # kernel's split schedule in torch at its split count S
     Lf = 8
-    for T, start, Cf in ((3968, 0, 8192), (512, 32768 - 512, 32768), (65, 100, 8192)):
+    for T, start, Cf in ((3968, 0, 8192), (512, 32768 - 512, 32768), (65, 100, 8192), (128, 8064, 8192)):
         kf = randn(Lf, Hkv, Cf, hd).to(torch.bfloat16)
         vf = randn(Lf, Hkv, Cf, hd).to(torch.bfloat16)
         kf[:, :, start + T:] = 1e4  # junk past the last position must not leak in
@@ -570,11 +590,20 @@ def phase_kernels(torch):
         sdpa = sdpa_rows(torch, qx, start, Cf)
         live = (torch.arange(Cf, device=dev) < start + T)[:, None]
         kz, vz = zero_past(kf, live), zero_past(vf, live)
-        check("flash_prefill", f"T={T} start={start} C={Cf}",
+        splits, resident = fp.plan(T, Hq, Hkv, Cf)
+        require(splits == fp.prefill_splits(T, Hq, Hkv, Cf),
+                f"flash_prefill T={T} C={Cf}: the kernel splits {splits} ways, prefill_splits says "
+                f"{fp.prefill_splits(T, Hq, Hkv, Cf)}")
+        n_clusters = Hkv * -(-(Hq // Hkv * T) // fp.ROW_TILE)
+        check("flash_prefill", f"T={T} start={start} C={Cf} S={splits} ({n_clusters} clusters, {resident} resident)",
               lambda i: fp.flash_prefill(qx, kf[i % Lf], vf[i % Lf], start),
               lambda i: fp.flash_prefill_plain(qx, kf[i % Lf], vf[i % Lf], start),  # the kernel's key tile
               calls=Lf, tol_abs=5e-3, work=attention_work(qx, Hkv, [(start, T)]),
-              library_fn=lambda i: sdpa(kz[i % Lf], vz[i % Lf]))
+              library_fn=lambda i: sdpa(kz[i % Lf], vz[i % Lf]),
+              split_fn=lambda i: fp.flash_prefill_split_plain(qx, kf[i % Lf], vf[i % Lf], start, splits))
+        again = [fp.flash_prefill(qx, kf[1], vf[1], start) for _ in range(2)]
+        record("flash_prefill", f"run to run T={T} start={start} C={Cf}", float((again[0] - again[1]).abs().max()),
+               0.0, 0.0, 0.0, bitwise=True)
         del kf, vf, kz, vz
     n_cases = sum(len(v) for v in results.values())
     say(f"phase kernels: ok {n_cases} cases")
@@ -1154,6 +1183,7 @@ def phase_fused_ffn(torch, engine, client, cfg, launches: Launches, reply_12s: d
     _route, clip, off_tokens, _steps = seen[0]
     on_tokens = seen[1][2]
     require(all(t == off_tokens for route, _c, t, _s in seen if not route), "the unrouted replies differ run to run")
+    require(all(t == on_tokens for route, _c, t, _s in seen if route), "the routed replies differ run to run")
     parted = _divergence(model, clip, off_tokens, on_tokens)
     note = ("identical tokens" if parted is None
             else f"first differs at token {parted[0]}, unrouted top-2 gap there {parted[1]:.3g}")

@@ -1,7 +1,7 @@
-// Shared-memory and tensor-core helpers of the attention kernels (flash_prefill.cu,
-// decode_attention.cu) for Hopper (sm_90a): cp.async copies, ldmatrix, mma.sync m16n8k16 with
-// bf16 operands and an f32 accumulator, and the reductions over the four threads that hold one
-// accumulator row.
+// Shared-memory and tensor-core helpers of the port's kernels for Hopper (sm_90a): cp.async
+// copies, ldmatrix, mma.sync m16n8k16 with bf16 operands and an f32 accumulator, the reductions
+// over the four threads that hold one accumulator row (attention), and the streaming loads and
+// Q8_0 dequantisation into mma B fragments (q8_matmul.cu, fused_ffn.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +19,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
+// 4 bytes global -> shared (cached at all levels)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -34,6 +39,34 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// mbarriers in shared memory: a producer / consumer ring without block barriers
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the arrival fires once every cp.async this thread issued before it has landed (the barrier's
+// count includes it: .noinc)
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// waits until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulator
@@ -58,6 +91,51 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Chunk range [lo, hi) of split r of S over n chunks.
+__host__ __device__ __forceinline__ void split_range(int n, int S, int r, int& lo, int& hi) {
+  lo = (int)((long long)r * n / S);
+  hi = (int)((long long)(r + 1) * n / S);
+}
+
+// 8 int8 quants (two words) times one scale -> 4 bf16 pairs, bf16(q * s) rounded to nearest even.
+// Each byte becomes an exact float through the 2^23 exponent trick (biased by 128); q * s is
+// exact in f32.
+__device__ __forceinline__ void dequant8(const uint2& qv, float sc, uint32_t (&w)[4]) {
+  const uint32_t words[2] = {qv.x, qv.y};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t u = words[j] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + b)) - 8388736.0f;  // 2^23 + 128
+    }
+    w[2 * j] = pack_bf16(f[0] * sc, f[1] * sc);
+    w[2 * j + 1] = pack_bf16(f[2] * sc, f[3] * sc);
+  }
+}
+
+// 16 int8 quants times one scale -> 8 bf16 pairs.
+__device__ __forceinline__ void dequant16(const int4& qv, float sc, uint32_t (&w)[8]) {
+  uint32_t lo[4], hi[4];
+  dequant8(make_uint2((uint32_t)qv.x, (uint32_t)qv.y), sc, lo);
+  dequant8(make_uint2((uint32_t)qv.z, (uint32_t)qv.w), sc, hi);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w[j] = lo[j];
+    w[4 + j] = hi[j];
+  }
+}
+
+__device__ __forceinline__ int4 ldg_stream(const int8_t* p) {
+  int4 v;
+  // volatile: issued where written (before the prologue), not sunk to its first use
+  asm volatile("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
 
 }  // namespace

@@ -68,29 +68,6 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Chunk range [lo, hi) of split r of S over n chunks.
-__host__ __device__ __forceinline__ void split_range(int n, int S, int r, int& lo, int& hi) {
-  lo = (int)((long long)r * n / S);
-  hi = (int)((long long)(r + 1) * n / S);
-}
-
-// 16 int8 quants times one scale -> 8 bf16 pairs, bf16(q * s) rounded to nearest even. Each byte
-// becomes an exact float through the 2^23 exponent trick (biased by 128); q * s is exact in f32.
-__device__ __forceinline__ void dequant16(const int4& qv, float sc, uint32_t (&w)[8]) {
-  const uint32_t words[4] = {(uint32_t)qv.x, (uint32_t)qv.y, (uint32_t)qv.z, (uint32_t)qv.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t u = words[j] ^ 0x80808080u;
-    float f[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + b)) - 8388736.0f;  // 2^23 + 128
-    }
-    w[2 * j] = pack_bf16(f[0] * sc, f[1] * sc);
-    w[2 * j + 1] = pack_bf16(f[2] * sc, f[3] * sc);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // T <= 8: GEMV on the tensor cores
 // ---------------------------------------------------------------------------
@@ -118,15 +95,6 @@ struct GemvArgs {
   int T, N, K;
   float eps;
 };
-
-__device__ __forceinline__ int4 ldg_stream(const int8_t* p) {
-  int4 v;
-  // volatile: issued where written (before the prologue), not sunk to its first use
-  asm volatile("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
 
 // Lane (g, c)'s quants of weight row n = n0 + g for chunks ch0 .. ch0 + kGemvBatch - 1 (those
 // below ce): k = 64 ch + 16c .. +15, and the scale of their Q8 block.

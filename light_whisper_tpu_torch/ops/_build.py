@@ -115,6 +115,8 @@ def library() -> ctypes.CDLL:
             lib.lwt_decode_attention_clusters.restype = ci
             lib.lwt_flash_prefill.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
             lib.lwt_flash_prefill.restype = ci
+            lib.lwt_flash_prefill_plan.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 2
+            lib.lwt_flash_prefill_plan.restype = ci
             lib.lwt_fused_ffn_step.argtypes = [vp] * 9 + [ci, ci, ci, cf, vp]
             lib.lwt_fused_ffn_step.restype = ci
             lib.lwt_fused_gateup_silu.argtypes = [vp] * 4 + [ci, ci, ci, vp]

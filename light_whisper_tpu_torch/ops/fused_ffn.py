@@ -37,8 +37,12 @@ from light_whisper_tpu_torch.ops.q8_matmul import (
 KERNEL_BLOCK_F = 32  # inner columns a partial of the down contraction (one Q8 block; csrc/fused_ffn.cu)
 
 LAUNCHES = {"fused_ffn_step": 0, "fused_gateup_silu": 0}
-# grid-barrier words of the kernel (arrivals, generation), one pair a (device, stream)
+# The kernel's grid-barrier arrival count, one a (device, stream), and the launches since it was
+# last zeroed: each launch adds its grid (one CTA an SM), so it is zeroed, in stream order, every
+# BARRIER_RESET launches, long before it could wrap (2^20 launches x 2048 SMs < 2^31).
+BARRIER_RESET = 1 << 20
 _BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
+_BARRIER_USES: Dict[Tuple[int, int], int] = {}
 
 
 # -- plain PyTorch versions (CPU path and on-card reference) -------------------
@@ -83,10 +87,15 @@ def _check_weights(dev, named) -> None:
 
 
 def _barrier(dev: torch.device, stream: int) -> torch.Tensor:
+    """The barrier words for a launch on ``stream``, zeroed first when due."""
     key = (dev.index, stream)
     words = _BARRIERS.get(key)
     if words is None:
-        words = _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+        words = _BARRIERS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    elif _BARRIER_USES[key] >= BARRIER_RESET:
+        words.zero_()  # on the current stream: after every earlier launch, before this one
+        _BARRIER_USES[key] = 0
+    _BARRIER_USES[key] = _BARRIER_USES.get(key, 0) + 1
     return words
 
 
@@ -133,6 +142,8 @@ def fused_ffn_step(x: torch.Tensor, norm_w: torch.Tensor, gateup_q: torch.Tensor
     T, D, F = _gateup_dims(x, gateup_q, gateup_s)
     _require(tuple(down_q.shape[1:]) == (D, F) and tuple(down_s.shape[1:]) == (D, F // Q8_0_BLOCK),
              f"down_q / down_s must be [L, {D}, {F}] / [L, {D}, {F // Q8_0_BLOCK}]")
+    # the kernel copies each down scale row into shared memory 4 bytes at a time
+    _require(F % (2 * Q8_0_BLOCK) == 0, f"F {F} must be a multiple of {2 * Q8_0_BLOCK}")
     dev = x.device
     gq, gs, dq, ds = gateup_q[layer], gateup_s[layer], down_q[layer], down_s[layer]
     _check_weights(dev, (("gateup_q", gq, torch.int8), ("gateup_s", gs, torch.bfloat16),
@@ -143,7 +154,7 @@ def fused_ffn_step(x: torch.Tensor, norm_w: torch.Tensor, gateup_q: torch.Tensor
     norm_w = norm_w.to(device=dev, dtype=torch.float32).contiguous()
     _require(norm_w.shape == (D,), f"norm_w must be [{D}]")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    inner = torch.empty((T, F), dtype=torch.bfloat16, device=dev)
+    inner = torch.empty((T + T % 2, F), dtype=torch.bfloat16, device=dev)  # scratch: [F/8][T rounded up][8]
     y = torch.empty((T, D), dtype=torch.float32, device=dev)
     err = _build.library().lwt_fused_ffn_step(
         x.data_ptr(), norm_w.data_ptr(), gq.data_ptr(), gs.data_ptr(), dq.data_ptr(), ds.data_ptr(),

@@ -264,6 +264,32 @@ def test_flash_prefill_refuses_positions_past_the_cache(cuda):
         fp.flash_prefill(torch.zeros(100, 4, 128, device=cuda, dtype=torch.bfloat16), kc, kc, 1000)
 
 
+# (T, Hq, Hkv, C, start): G = 1, 2, 4; T not a multiple of the 128-row tile; shares of the
+# visible keys whose last one ends mid-share, and (T=3) fewer visible keys than shares
+FLASH_SPLIT_EDGES = [(100, 8, 8, 8192, 1000), (200, 16, 8, 8192, 7000), (97, 16, 4, 8192, 5), (3, 8, 2, 8192, 0),
+                     (128, 16, 8, 8192, 8064), (512, 16, 8, 32768, 32768 - 512)]
+
+
+@pytest.mark.parametrize("T,Hq,Hkv,C,start", FLASH_SPLIT_EDGES)
+def test_flash_prefill_split_edges(cuda, T, Hq, Hkv, C, start):
+    """The cluster key split: within 5e-3 of the split schedule in torch at
+    the kernel's own split count and of the unsplit plain version, junk past
+    the last position kept out, and bitwise the same run to run."""
+    kc = torch.randn(Hkv, C, 128, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(Hkv, C, 128, device=cuda).to(torch.bfloat16)
+    kc[:, start + T:] = 1e4
+    vc[:, start + T:] = -1e4
+    qx = (torch.randn(T, Hq, 128, device=cuda) * 2).to(torch.bfloat16)
+    splits, clusters = fp.plan(T, Hq, Hkv, C)
+    assert splits == fp.prefill_splits(T, Hq, Hkv, C) and clusters >= 1
+    before = fp.LAUNCHES["flash_prefill"]
+    got = fp.flash_prefill(qx, kc, vc, start)
+    again = fp.flash_prefill(qx, kc, vc, start)
+    assert fp.LAUNCHES["flash_prefill"] == before + 2
+    _held(got, fp.flash_prefill_split_plain(qx, kc, vc, start, splits), fp.flash_prefill_plain(qx, kc, vc, start))
+    assert torch.equal(got, again)
+
+
 def _ffn_weights(D, F, device, seed=7):
     gq, gs = _weights(2, 2 * F, D, seed=seed, device=device)
     dq, ds = _weights(2, D, F, seed=seed + 1, device=device)
@@ -283,7 +309,7 @@ def _within_one_ulp(got, want):
 @pytest.mark.parametrize("T", [1, 3, 8])
 def test_fused_ffn_step(cuda, T):
     """0.6B widths (D = 1024, F = 3072), both layers, twice each (the grid
-    barrier's words are reused); 1e-3 of max|ref| against the plain version
+    barrier's count is reused); 1e-3 of max|ref| against the plain version
     at the kernel's tile (the rsqrt and the bf16 rounding of ``inner``)."""
     D, F = 1024, 3072
     gq, gs, dq, ds = _ffn_weights(D, F, cuda)
@@ -427,3 +453,53 @@ def test_tile_plan_agrees_with_the_kernel(cuda):
     holds at least one cluster of each."""
     for N, K in [(4096, 1024), (1024, 2048), (6144, 1024), (1024, 3072), (3584, 896), (896, 7680)]:
         assert q8.resident_clusters(N, K) >= 1
+
+
+@pytest.fixture(scope="module")
+def ffn_1_7b():
+    """Qwen3-ASR 1.7B's decoder FFN widths (D = 2048, F = 6144), two layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _ffn_weights(2048, 6144, torch.device("cuda"), seed=11)
+
+
+@pytest.mark.parametrize("T", range(1, 9))
+def test_fused_ffn_step_at_1_7b_widths(ffn_1_7b, T):
+    """Two down row groups a CTA (~101 KB of shared memory): within 1e-3 of
+    max|ref| of the plain version, and bitwise the same run to run."""
+    gq, gs, dq, ds = ffn_1_7b
+    x = (torch.randn(T, 2048, device="cuda") * 3).to(torch.bfloat16)
+    norm_w = 1.0 + 0.1 * torch.randn(2048, device="cuda")
+    before = ffn.LAUNCHES["fused_ffn_step"]
+    got = ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, 1)
+    again = ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, 1)
+    assert ffn.LAUNCHES["fused_ffn_step"] == before + 2
+    _close(got, ffn.fused_ffn_step_plain(x, norm_w, gq, gs, dq, ds, 1), rel=1e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("D,F", [(1024, 3072), (2048, 6144)])
+def test_fused_ffn_rows_are_independent_bitwise(cuda, D, F):
+    """Row t of a T = 8 call equals the T = 1 call on that row, bit for bit:
+    T = 1 runs T = 8's instructions with zero rows, every sum in one order."""
+    gq, gs, dq, ds = _ffn_weights(D, F, cuda, seed=13)
+    x = (torch.randn(8, D, device=cuda) * 3).to(torch.bfloat16)
+    norm_w = 1.0 + 0.1 * torch.randn(D, device=cuda)
+    rows = ffn.fused_ffn_step(x, norm_w, gq, gs, dq, ds, 0)
+    alone = torch.cat([ffn.fused_ffn_step(x[t:t + 1], norm_w, gq, gs, dq, ds, 0) for t in range(8)])
+    assert torch.equal(rows, alone)
+    inner = ffn.fused_gateup_silu(x, gq, gs, 0)
+    assert torch.equal(inner, torch.cat([ffn.fused_gateup_silu(x[t:t + 1], gq, gs, 0) for t in range(8)]))
+
+
+@pytest.mark.parametrize("T", [1, 8])
+def test_fused_gateup_silu_at_1_7b_widths(ffn_1_7b, T):
+    gq, gs, _dq, _ds = ffn_1_7b
+    h = torch.randn(T, 2048, device="cuda").to(torch.bfloat16)
+    _within_one_ulp(ffn.fused_gateup_silu(h, gq, gs, 0), ffn.fused_gateup_silu_plain(h, gq, gs, 0))
+
+
+def test_fused_ffn_step_refuses_f_not_a_multiple_of_64(cuda):
+    gq, gs, dq, ds = _ffn_weights(64, 96, cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ffn.fused_ffn_step(torch.zeros(1, 64, device=cuda), torch.ones(64, device=cuda), gq, gs, dq, ds, 0)

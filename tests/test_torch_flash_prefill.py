@@ -7,6 +7,14 @@ the reference's Pallas flash kernel (interpret mode) and its chunked scan.
   ``tests/test_flash_prefill.py``;
 - ``attention_chunked`` must match ``_attention_chunked`` within ``TOL``, with
   bf16 and with f32 operands;
+- ``flash_prefill_split_plain`` (the CUDA kernel's schedule: row tiles of 128,
+  the visible keys of a tile cut into S shares whose states merge in rank
+  order) matches ``flash_prefill_plain`` and the Pallas kernel within 5e-3
+  absolute, the card's tolerance (p is rounded to bf16 against each share's
+  own running max), at S = 1, 2, 8, 16, with empty shares and share bounds
+  that are not multiples of the key tile; ``prefill_splits`` reads the static
+  shapes only, so ``forward`` and ``forward_prefill_batch`` at B=1 take the
+  same schedule and agree;
 - the router sends T > 64 bf16 rows at C >= 8192 to ``flash_prefill`` on the
   card and to ``attention_chunked`` on the CPU, and the wrapper refuses what
   the kernel does not take.
@@ -14,6 +22,9 @@ the reference's Pallas flash kernel (interpret mode) and its chunked scan.
 Inputs are made with numpy from a seed and are bf16-representable, so both
 packages see the same operands; the reference gets f32 queries so that its
 output stays f32 (it casts q to bf16 itself)."""
+
+import functools
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +100,64 @@ def test_a_row_that_sees_no_key_is_exactly_zero():
     k_empty = k[:, :0]  # no key at all: l == 0 for every row
     out = fp.flash_prefill_plain(q, k_empty, v[:, :0], 0)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# (T, Hq, Hkv, C, start): one tile of 36 rows over 52 keys (at S = 16, shares of 4 keys and three
+# empty ones), three tiles at G = 3, and a ragged last tile of 88 rows at G = 2
+SPLIT_SHAPES = [
+    pytest.param(12, 6, 2, 512, 40, id="one-tile-52keys-G3"),
+    pytest.param(96, 6, 2, 512, 200, id="three-tiles-G3"),
+    pytest.param(300, 16, 8, 1024, 700, id="ragged-last-tile-G2"),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_reference(T, n_heads, n_kv, capacity, start):
+    q, k, v = _inputs(T, n_heads, n_kv, capacity, start, seed=4)
+    q_pos = jnp.arange(start, start + T, dtype=jnp.int32)
+    return np.asarray(flash_prefill_attention(_jnp(q, jnp.float32), _jnp(k), _jnp(v), q_pos, interpret=True))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8, 16])
+@pytest.mark.parametrize("T,n_heads,n_kv,capacity,start", SPLIT_SHAPES)
+def test_split_plain_matches_plain_and_the_pallas_kernel(T, n_heads, n_kv, capacity, start, splits):
+    q, k, v = _inputs(T, n_heads, n_kv, capacity, start, seed=4)
+    got = fp.flash_prefill_split_plain(q, k, v, start, splits)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), fp.flash_prefill_plain(q, k, v, start).numpy(), rtol=0, atol=5e-3)
+    np.testing.assert_allclose(got.numpy(), _pallas_reference(T, n_heads, n_kv, capacity, start), rtol=0, atol=5e-3)
+
+
+def test_split_plain_at_one_split_is_the_plain_version():
+    """S = 1 walks each tile's keys in the plain version's key blocks: the
+    same arithmetic, so the same result to f32 reordering of p·v's tiles."""
+    q, k, v = _inputs(300, 16, 8, 1024, 700, seed=5)
+    torch.testing.assert_close(fp.flash_prefill_split_plain(q, k, v, 700, 1), fp.flash_prefill_plain(q, k, v, 700),
+                               rtol=0, atol=1e-6)
+
+
+def test_an_empty_share_weighs_nothing():
+    """Rows of one position over a single key: at S = 8 seven shares are
+    empty (max -1e30, denominator 0) and the result is that key's value."""
+    q, k, v = _inputs(1, 2, 1, 64, 0, seed=6)
+    out = fp.flash_prefill_split_plain(q, k, v, 0, 8)
+    torch.testing.assert_close(out[0], v[0, :1].float().expand(2, -1), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "T,n_heads,n_kv,capacity,want",
+    [
+        (3968, 16, 8, 8192, 1),  # the single-pass prompt: 496 row tiles fill the card
+        (512, 16, 8, 32768, 2),  # 64 tiles: two shares each
+        (128, 16, 8, 8192, 4),  # 16 tiles at the single-pass capacity: at most MAX_SPLITS
+        (65, 16, 8, 8192, 4),
+        (128, 16, 8, 1024, 2),  # every share keeps 512 slots of the capacity
+        (2, 2, 1, 8192, 4),
+    ],
+)
+def test_prefill_splits_reads_the_static_shapes_only(T, n_heads, n_kv, capacity, want):
+    assert list(inspect.signature(fp.prefill_splits).parameters) == ["T", "n_heads", "n_kv", "capacity"]
+    assert fp.prefill_splits(T, n_heads, n_kv, capacity) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -232,3 +301,38 @@ def test_decoder_at_capacity_8192_matches_the_reference(monkeypatch, batched):
         assert tcache.pos == START + NEW
     _assert_hidden_close(got, want)
     assert routes.count("port") == CFG.block_count and "ref" in routes
+
+
+def test_forward_and_the_batched_prefill_take_one_split_schedule(monkeypatch):
+    """With the card's route and the kernel's schedule in torch standing in
+    for the kernel, ``forward`` and ``forward_prefill_batch`` at B=1 call it
+    with the same shapes, so the same split count whatever the start, and
+    their hidden states agree within the batched decoder tests' tolerance."""
+    from test_torch_batch_decoder import CFG, REL_TOL, _embeds, _params
+
+    calls = []
+
+    def kernel_schedule(q, k_layer, v_layer, start):
+        splits = fp.prefill_splits(q.shape[0], q.shape[1], k_layer.shape[0], k_layer.shape[1])
+        calls.append((tuple(q.shape), tuple(k_layer.shape), start, splits))
+        return fp.flash_prefill_split_plain(q, k_layer, v_layer, start, splits)
+
+    real_route = dec._attention_route
+    monkeypatch.setattr(dec, "_attention_route", lambda dtype, T, capacity, device: real_route(dtype, T, capacity, "cuda"))
+    monkeypatch.setattr(dec, "flash_prefill", kernel_schedule)
+    _jparams, tparams = _params(True, seed=12)
+    outs = {}
+    for batched in (False, True):
+        _jcache, tcache = _long_caches(batched)
+        if batched:
+            _ej, et = _embeds((1, NEW, CFG.embedding_length), seed=13)
+            outs[batched] = dec.forward_prefill_batch(CFG, tparams, et, tcache)[0]
+        else:
+            _ej, et = _embeds((NEW, CFG.embedding_length), seed=13)
+            outs[batched] = dec.forward(CFG, tparams, et, tcache)
+    assert len(calls) == 2 * CFG.block_count and len(set(calls)) == 1, calls
+    assert calls[0][2:] == (START, fp.prefill_splits(NEW, CFG.head_count, CFG.head_count_kv, 8192))
+    # the two paths' bf16 activations may round one ulp apart (another matmul shape), as in
+    # test_torch_batch_decoder.py
+    err = float((outs[False].float() - outs[True].float()).abs().max())
+    assert err <= REL_TOL * max(1.0, float(outs[False].float().abs().max())), err

@@ -369,3 +369,20 @@ def test_gate_on_skips_dense_layers(monkeypatch):
     x = torch.from_numpy(np.asarray(embeds[:1].astype(jnp.float32))).to(torch.bfloat16)
     dec.forward(CFG, dict(tparams, layers=layers), x, dec.init_cache(CFG, 16))
     assert calls == []
+
+
+def test_barrier_count_is_zeroed_in_stream_order_before_it_could_wrap(monkeypatch):
+    """The kernel's grid-barrier count grows by the grid every launch; the
+    wrapper zeroes it every ``BARRIER_RESET`` launches of a (device, stream)
+    and leaves it alone in between."""
+    monkeypatch.setattr(ffn, "BARRIER_RESET", 3)
+    monkeypatch.setattr(ffn, "_BARRIERS", {})
+    monkeypatch.setattr(ffn, "_BARRIER_USES", {})
+    dev = torch.device("cpu")
+    seen = []
+    for _launch in range(7):
+        words = ffn._barrier(dev, 0)
+        seen.append(int(words[0]))
+        words[0] += 132  # what one launch of the kernel adds
+    assert seen == [0, 132, 264, 0, 132, 264, 0]
+    assert ffn._barrier(dev, 1) is not words  # another stream has its own count
