@@ -12,8 +12,10 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    0.6B shapes (those of the single-pass path included: the encoder's 6,656
    rows at the 512 s bucket, the 3,968-row prompt's projections, decode
    attention over ~4,000 keys of an 8192-slot cache; the fused decode FFN at
-   0.6B and 1.7B widths and the Q8 probes at the decode shapes), with the
-   tolerance stated on each
+   0.6B and 1.7B widths and the Q8 probes at the decode shapes, which are
+   instantiations of the shipped GEMV: one line a case gives the four
+   variants' times beside the bound and the differences that isolate one
+   cost each), with the tolerance stated on each
    line (integer-valued cases bitwise): kernel / plain times from CUDA
    events, the bound (the least time the card could take for the case's
    bytes and operations) and, for the attention kernels, one
@@ -470,9 +472,12 @@ def phase_kernels(torch):
           work=(2 * F * D + 2 * F * (D // 32) * 2 + 8 * D * 2 + 8 * F * 2, 2 * 8 * 2 * F * D))
     # Qwen3-ASR 1.7B's decoder FFN: two down row groups a CTA in shared memory
     D7, F7 = 2048, 6144
-    ffn_cases(D7, F7, *weights(L, 2 * F7, D7), *weights(L, D7, F7), label=" (1.7B widths)")
+    gq7, gs7 = weights(L, 2 * F7, D7)
+    ffn_cases(D7, F7, gq7, gs7, *weights(L, D7, F7), label=" (1.7B widths)")
 
-    # -- the Q8 probes at the 0.6B decode shapes, layers cycled -------------------
+    # -- the Q8 probes at the 0.6B decode shapes, layers cycled: each variant is the shipped
+    # GEMV's body (csrc/q8_gemv.cuh) with another per-chunk term, so the differences of their
+    # times isolate one cost each ----------------------------------------------------------
     bk = cb.PERM_BLOCK_K
     for name in ("qkv", "gateup", "down"):
         N, K = proj[name]
@@ -483,22 +488,52 @@ def phase_kernels(torch):
             xp = kp.permute_kaxis(x, bk).contiguous()
             check("q8_probe", f"noscale {name} T={T} {N}x{K}",
                   lambda i: cb.q8_probe("noscale", x, qw[i % L], sw[i % L]),
-                  lambda i: cb.noscale_plain(x, qw[i % L]), calls=L,
-                  work=(T * K * 2 + N * K + T * N * 4, 2 * T * N * K))
+                  lambda i: cb.noscale_plain(x, qw[i % L]), calls=L, work=q8_work(T, N, K),
+                  split_fn=lambda i: cb.noscale_split_plain(x, qw[i % L]))
             check("q8_probe", f"load {name} T={T} {N}x{K}",  # integer sums: bitwise
                   lambda i: cb.q8_probe("load", x, qw[i % L], sw[i % L]),
                   lambda i: cb.load_plain(qw[i % L], T), calls=L, tol_abs=0.0,
-                  work=(N * K + N * (K // 32) * 2 + T * N * 4, 0))
+                  work=(q8_work(T, N, K)[0], 0))
             check("q8_matmul_stacked_perm", f"{name} T={T} {N}x{K} block_k={bk}",
                   lambda i: kp.q8_matmul_stacked_perm_2d(xp, qp, sw, i % L, bk),
                   lambda i: kp.q8_matmul_perm_plain(xp, qp[i % L], sw[i % L], bk), calls=L,
-                  work=q8_work(T, N, K))
+                  work=q8_work(T, N, K),
+                  split_fn=lambda i: kp.q8_matmul_perm_split_plain(xp, qp[i % L], sw[i % L], bk))
+            ms = {"load": results["q8_probe"][-1]["ms"], "noscale": results["q8_probe"][-2]["ms"],
+                  "full": _time_ms(torch, lambda i: q8.q8_matmul_stacked(x, qw, sw, i % L), L),
+                  "permexact": results["q8_matmul_stacked_perm"][-1]["ms"]}
+            bound = bound_ms(*q8_work(T, N, K))[0]
+            say(f"  probe {name} T={T} {N}x{K} {q8_schedule(T, N, K)}: "
+                + " / ".join(f"{v} {t:.4f}" for v, t in ms.items()) + f" ms, bound {bound:.4f} ms; "
+                + " ".join(f"{k}={v:.4f}" for k, v in cb.terms(ms, bound).items())
+                + f"; load<=noscale<=full<=permexact: {ms['load'] <= ms['noscale'] <= ms['full'] <= ms['permexact']}")
+        # the probes run the shipped GEMV's instructions at every T: a row is the same batched and alone
+        x8 = randn(8, K).to(torch.bfloat16)
+        for variant, form, x_in, call in (
+                ("noscale", "q8_probe", x8, lambda rows: cb.q8_probe("noscale", rows, qw[3], sw[3])),
+                ("perm", "q8_matmul_stacked_perm", kp.permute_kaxis(x8, bk).contiguous(),
+                 lambda rows: kp.q8_matmul_stacked_perm_2d(rows, qp, sw, 3, bk))):
+            rows = call(x_in)
+            alone = torch.cat([call(x_in[t:t + 1]) for t in range(8)])
+            record(form, f"rows of T=8 vs each row at T=1, {variant} {name} {N}x{K}",
+                   float((rows - alone).abs().max()), 0.0, 0.0, 0.0, bitwise=True)
         if name == "gateup":
             x = randn(8, K).to(torch.bfloat16)
             check("q8_matmul_perm", f"gateup T=8 {N}x{K} block_k={bk}, x permuted in the call",
                   lambda i: kp.q8_matmul_perm(x, qp[i % L], sw[i % L], bk),
                   lambda i: q8.q8_matmul_plain(x, qw[i % L], sw[i % L]), calls=L, work=q8_work(8, N, K))
         del qp
+    # block_k 2048, the reference's bench block, on the 1.7B gate/up stack of the FFN cases
+    N7, K7 = gq7.shape[1:]
+    qp7 = kp.permute_kaxis(gq7, 2048).contiguous()
+    for T in (1, 8):
+        xp = kp.permute_kaxis(randn(T, K7).to(torch.bfloat16), 2048).contiguous()
+        check("q8_matmul_stacked_perm", f"gateup 1.7B T={T} {N7}x{K7} block_k=2048",
+              lambda i: kp.q8_matmul_stacked_perm_2d(xp, qp7, gs7, i % L, 2048),
+              lambda i: kp.q8_matmul_perm_plain(xp, qp7[i % L], gs7[i % L], 2048), calls=L,
+              work=q8_work(T, N7, K7),
+              split_fn=lambda i: kp.q8_matmul_perm_split_plain(xp, qp7[i % L], gs7[i % L], 2048))
+    del qp7, gq7, gs7
 
     # -- decode attention: 0.6B heads, stacked caches --------------------------
     Hq, Hkv, hd = 16, 8, 128

@@ -1,7 +1,7 @@
 // Shared-memory and tensor-core helpers of the port's kernels for Hopper (sm_90a): cp.async
 // copies, ldmatrix, mma.sync m16n8k16 with bf16 operands and an f32 accumulator, the reductions
 // over the four threads that hold one accumulator row (attention), and the streaming loads and
-// Q8_0 dequantisation into mma B fragments (q8_matmul.cu, fused_ffn.cu).
+// Q8_0 dequantisation into mma B fragments (q8_gemv.cuh, q8_matmul.cu, fused_ffn.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -99,19 +99,22 @@ __host__ __device__ __forceinline__ void split_range(int n, int S, int r, int& l
   hi = (int)((long long)(r + 1) * n / S);
 }
 
-// 8 int8 quants (two words) times one scale -> 4 bf16 pairs, bf16(q * s) rounded to nearest even.
-// Each byte becomes an exact float through the 2^23 exponent trick (biased by 128); q * s is
-// exact in f32.
+// The 4 int8 quants of one word as exact floats: each byte through the 2^23 exponent trick
+// (biased by 128: 2^23 + 128 = 8388736).
+__device__ __forceinline__ void quants4(uint32_t word, float (&f)[4]) {
+  const uint32_t u = word ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + b)) - 8388736.0f;
+}
+
+// 8 int8 quants (two words) times one scale -> 4 bf16 pairs, bf16(q * s) rounded to nearest even
+// (q * s is exact in f32).
 __device__ __forceinline__ void dequant8(const uint2& qv, float sc, uint32_t (&w)[4]) {
   const uint32_t words[2] = {qv.x, qv.y};
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const uint32_t u = words[j] ^ 0x80808080u;
     float f[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + b)) - 8388736.0f;  // 2^23 + 128
-    }
+    quants4(words[j], f);
     w[2 * j] = pack_bf16(f[0] * sc, f[1] * sc);
     w[2 * j + 1] = pack_bf16(f[2] * sc, f[3] * sc);
   }
@@ -126,6 +129,34 @@ __device__ __forceinline__ void dequant16(const int4& qv, float sc, uint32_t (&w
   for (int j = 0; j < 4; ++j) {
     w[j] = lo[j];
     w[4 + j] = hi[j];
+  }
+}
+
+// 16 int8 quants -> 8 bf16 pairs with no scale: bf16(q) is exact (|q| <= 128 needs 8 bits).
+__device__ __forceinline__ void cvt16(const int4& qv, uint32_t (&w)[8]) {
+  const uint32_t words[4] = {(uint32_t)qv.x, (uint32_t)qv.y, (uint32_t)qv.z, (uint32_t)qv.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float f[4];
+    quants4(words[j], f);
+    w[2 * j] = pack_bf16(f[0], f[1]);
+    w[2 * j + 1] = pack_bf16(f[2], f[3]);
+  }
+}
+
+// 16 int8 quants times 16 scales (bf16 pairs, the lower k in the low half) -> 8 bf16 pairs,
+// bf16(q * s) rounded as dequant16 rounds.
+__device__ __forceinline__ void dequant16_scales(const int4& qv, const uint32_t (&sc)[8], uint32_t (&w)[8]) {
+  const uint32_t words[4] = {(uint32_t)qv.x, (uint32_t)qv.y, (uint32_t)qv.z, (uint32_t)qv.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float f[4];
+    quants4(words[j], f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float lo = __uint_as_float(sc[2 * j + h] << 16), hi = __uint_as_float(sc[2 * j + h] & 0xffff0000u);
+      w[2 * j + h] = pack_bf16(f[2 * h] * lo, f[2 * h + 1] * hi);
+    }
   }
 }
 

@@ -34,13 +34,14 @@
 // map, so each product pairs the right x with the right weight; a lane reads 16 contiguous
 // quants (one 16-byte load) and 16 contiguous bf16 of x (two 16-byte loads) a chunk.
 //
-//   T <= 8: q8_gemv_kernel. A CTA of 4 warps owns 8 weight rows at a time (mma's n = 8) and
-//           splits K over its warps (S = 4, every T). A = x (the T rows, zero-padded to 16),
-//           B = the 8 rows dequantised in registers. T = 1 runs the same instructions as T = 8
-//           with zero rows, so each output sums in one order for every T. Each warp issues its
-//           first quants and scales right behind the x prologue's copies and keeps two
-//           batches of 4 chunks (64 bytes a lane each) in registers, one in flight while the
-//           other is used; CTAs stride over row groups.
+//   T <= 8: q8_gemv_kernel<kFull>, whose body is in q8_gemv.cuh (the probes of q8_probe.cu
+//           instantiate the same body). A CTA of 4 warps owns 8 weight rows at a time (mma's
+//           n = 8) and splits K over its warps (S = 4, every T). A = x (the T rows, zero-padded
+//           to 16), B = the 8 rows dequantised in registers. T = 1 runs the same instructions
+//           as T = 8 with zero rows, so each output sums in one order for every T. Each warp
+//           issues its first quants and scales right behind the x prologue's copies and keeps
+//           two batches of 4 chunks (64 bytes a lane each) in registers, one in flight while
+//           the other is used; CTAs stride over row groups.
 //   T > 8:  q8_tile_kernel. A 64x128 output tile per CTA (4 warps of 64x32), K in chunks of
 //           64 streamed by cp.async through a ring of 4 stages of x, quants and scales; the
 //           quants are dequantised to bf16 in registers right before the mma. With S > 1 the
@@ -55,293 +56,11 @@
 
 #include <mutex>
 
-#include "attention_common.cuh"
+#include "q8_gemv.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kBlock = 32;  // Q8_0 block length along K
-constexpr int kChunk = 64;  // K a chunk: two Q8 blocks, four mma k-steps
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// ---------------------------------------------------------------------------
-// T <= 8: GEMV on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int kGemvWarps = 4;  // = the K splits of every T <= 8 call
-constexpr int kGemvThreads = kGemvWarps * 32;
-constexpr int kGemvRows = 8;   // weight rows a group (mma's n)
-constexpr int kGemvBatch = 4;  // chunks a lane holds in registers a batch
-constexpr int kGemvCtasPerSm = 4;
-constexpr int kMaxRows = 8;
-constexpr int kNormVecs = 3;  // norm_w vectors a thread prefetches: K <= 3 * 8 * threads (3072)
-
-struct GemvBatch {
-  int4 q[kGemvBatch];
-  float s[kGemvBatch];
-};
-
-struct GemvArgs {
-  const __nv_bfloat16* x;         // [T, K]
-  const int8_t* q;                // [N, K]
-  const __nv_bfloat16* s;         // [N, K/32]
-  const float* norm_w;            // [K] or null
-  const __nv_bfloat16* residual;  // [T, N] or null
-  float* y;                       // [T, N]
-  int T, N, K;
-  float eps;
-};
-
-// Lane (g, c)'s quants of weight row n = n0 + g for chunks ch0 .. ch0 + kGemvBatch - 1 (those
-// below ce): k = 64 ch + 16c .. +15, and the scale of their Q8 block.
-__device__ __forceinline__ void gemv_load(GemvBatch& b, const GemvArgs& a, int n, int c, int ch0, int ce) {
-  const int kb = a.K / kBlock;
-#pragma unroll
-  for (int u = 0; u < kGemvBatch; ++u) {
-    const int ch = ch0 + u;
-    const int k = ch * kChunk + 16 * c;
-    if (n < a.N && ch < ce && k < a.K) {
-      b.q[u] = ldg_stream(a.q + (size_t)n * a.K + k);
-      b.s[u] = __bfloat162float(a.s[(size_t)n * kb + (k >> 5)]);
-    } else {
-      b.q[u] = make_int4(0, 0, 0, 0);
-      b.s[u] = 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ void gemv_compute(const GemvBatch& b, float (&acc)[4], const __nv_bfloat16* xs, int xs_stride,
-                                             int T, int g, int c, int ch0, int ce) {
-#pragma unroll
-  for (int u = 0; u < kGemvBatch; ++u) {
-    const int ch = ch0 + u;
-    if (ch < ce) {  // warp-uniform
-      uint32_t w[8];
-      dequant16(b.q[u], b.s[u], w);
-      uint32_t xa[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-      if (g < T) {
-        const uint4* p = reinterpret_cast<const uint4*>(xs + (size_t)g * xs_stride + ch * kChunk + 16 * c);
-        const uint4 lo = p[0], hi = p[1];
-        xa[0] = lo.x; xa[1] = lo.y; xa[2] = lo.z; xa[3] = lo.w;
-        xa[4] = hi.x; xa[5] = hi.y; xa[6] = hi.z; xa[7] = hi.w;
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const uint32_t af[4] = {xa[2 * t], 0u, xa[2 * t + 1], 0u};  // rows 8..15 of A are zero
-        mma_bf16(acc, af, w[2 * t], w[2 * t + 1]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kGemvThreads, kGemvCtasPerSm) q8_gemv_kernel(GemvArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [T, xs_stride]
-  __shared__ __align__(16) float red[2][kGemvWarps][kGemvRows][kGemvRows];
-  __shared__ float nred[kGemvWarps][kMaxRows];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-  const int T = a.T, N = a.N, K = a.K;
-  const int nch = (K + kChunk - 1) / kChunk;
-  const int kpad = nch * kChunk;
-  const int xs_stride = kpad + 8;  // 16 bytes of padding: conflict-free 16-byte reads of 8 rows
-  int cb, ce;
-  split_range(nch, kGemvWarps, warp, cb, ce);
-  const int nb = ((nch + kGemvWarps - 1) / kGemvWarps + kGemvBatch - 1) / kGemvBatch;  // batches a group
-  const int ngroups = (N + kGemvRows - 1) / kGemvRows;
-  const int mine = ngroups > (int)blockIdx.x ? (ngroups - (int)blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-  const int nsteps = mine * nb;
-
-  // x (and norm_w) into shared memory with cp.async: one round trip
-  const int per_row = kpad / 8;  // 16-byte vectors a staged row
-  for (int i = tid; i < T * per_row; i += kGemvThreads) {
-    const int t = i / per_row;
-    const int k = (i - t * per_row) * 8;
-    __nv_bfloat16* dst = xs + t * xs_stride + k;
-    if (k < K) {
-      cp_async16(dst, a.x + (size_t)t * K + k, 16);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  cp_async_commit();
-  // the weight stream starts right behind the small x copies (L2-resident after the first CTA),
-  // so the prologue below runs while the weights are in flight
-  GemvBatch b0, b1;  // two batches: one in flight while the other is used
-  auto step_at = [&](int st, int& n0, int& ch0) {
-    const int gi = st / nb;
-    n0 = ((int)blockIdx.x + gi * (int)gridDim.x) * kGemvRows;
-    ch0 = cb + (st - gi * nb) * kGemvBatch;
-  };
-  auto load_step = [&](GemvBatch& b, int st) {
-    if (st < nsteps) {
-      int n0, ch0;
-      step_at(st, n0, ch0);
-      gemv_load(b, a, n0 + g, c, ch0, ce);
-    }
-  };
-  load_step(b0, 0);
-  // norm_w of this thread's first kNormVecs 8-wide vectors k = 8 (tid + j * threads), loaded
-  // while x lands and the sums of squares run
-  float4 nwr[kNormVecs][2];
-  if (a.norm_w != nullptr) {
-#pragma unroll
-    for (int j = 0; j < kNormVecs; ++j) {
-      const int k = 8 * (tid + j * kGemvThreads);
-      if (k < K) {
-        nwr[j][0] = __ldg(reinterpret_cast<const float4*>(a.norm_w + k));
-        nwr[j][1] = __ldg(reinterpret_cast<const float4*>(a.norm_w + k) + 1);
-      }
-    }
-  }
-
-  cp_async_wait<0>();
-  __syncthreads();
-
-  if (a.norm_w != nullptr) {
-    // each row's sum of squares: 8 values a thread and vector, vectors strided over the threads,
-    // then the warps' sums in warp order (the same order for every T)
-    float ss[kMaxRows];
-#pragma unroll
-    for (int t = 0; t < kMaxRows; ++t) ss[t] = 0.f;
-    for (int k = tid * 8; k < K; k += kGemvThreads * 8) {
-#pragma unroll
-      for (int t = 0; t < kMaxRows; ++t) {
-        if (t < T) {
-          const uint4 v = *reinterpret_cast<const uint4*>(xs + t * xs_stride + k);
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = __bfloat1622float2(h[j]);
-            ss[t] = fmaf(f.x, f.x, ss[t]);
-            ss[t] = fmaf(f.y, f.y, ss[t]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kMaxRows; ++t) {
-      if (t < T) {  // uniform: rows past T skip their shuffles
-        float v = ss[t];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) nred[warp][t] = v;
-      }
-    }
-    __syncthreads();
-    float rs[kMaxRows];  // every thread sums the warps' partials in warp order: the same scale
-#pragma unroll
-    for (int t = 0; t < kMaxRows; ++t) {
-      if (t < T) {
-        float total = 0.f;
-        for (int w = 0; w < kGemvWarps; ++w) total += nred[w][t];
-        rs[t] = 1.0f / sqrtf(total / (float)K + a.eps);
-      }
-    }
-    // normalise in place: vector k of every row, with its norm_w in registers
-    for (int j = 0, k = tid * 8; k < K; ++j, k += kGemvThreads * 8) {
-      float wk[8];
-      float4 w0, w1;
-      if (j < kNormVecs) {
-#pragma unroll
-        for (int jj = 0; jj < kNormVecs; ++jj) {  // static indexing of the prefetched vectors
-          if (jj == j) {
-            w0 = nwr[jj][0];
-            w1 = nwr[jj][1];
-          }
-        }
-      } else {
-        w0 = __ldg(reinterpret_cast<const float4*>(a.norm_w + k));
-        w1 = __ldg(reinterpret_cast<const float4*>(a.norm_w + k) + 1);
-      }
-      wk[0] = w0.x; wk[1] = w0.y; wk[2] = w0.z; wk[3] = w0.w;
-      wk[4] = w1.x; wk[5] = w1.y; wk[6] = w1.z; wk[7] = w1.w;
-#pragma unroll
-      for (int t = 0; t < kMaxRows; ++t) {
-        if (t < T) {
-          uint4* p = reinterpret_cast<uint4*>(xs + t * xs_stride + k);
-          uint4 v = *p;
-          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h[e]);
-            h[e] = __floats2bfloat162_rn(f.x * rs[t] * wk[2 * e], f.y * rs[t] * wk[2 * e + 1]);
-          }
-          *p = v;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int buf = 0;
-  // after a group's last batch: the warps' partials summed in warp order, then the epilogue
-  auto finish = [&](int st) {
-    if ((st + 1) % nb != 0) return;
-    int n0, ch0;
-    step_at(st, n0, ch0);
-    *reinterpret_cast<float2*>(&red[buf][warp][g][2 * c]) = make_float2(acc[0], acc[1]);
-    acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-    __syncthreads();
-    if (tid < kGemvRows * kGemvRows) {
-      const int t = tid >> 3;
-      const int n = n0 + (tid & 7);
-      if (t < T && n < N) {
-        float v = red[buf][0][t][tid & 7];
-#pragma unroll
-        for (int w = 1; w < kGemvWarps; ++w) v += red[buf][w][t][tid & 7];
-        if (a.residual != nullptr) v = bf16_round(__bfloat162float(a.residual[(size_t)t * N + n]) + bf16_round(v));
-        a.y[(size_t)t * N + n] = v;
-      }
-    }
-    buf ^= 1;  // the next group writes the other buffer; this one is read before the next barrier
-  };
-
-  auto run_step = [&](const GemvBatch& b, int st) {
-    int n0, ch0;
-    step_at(st, n0, ch0);
-    gemv_compute(b, acc, xs, xs_stride, T, g, c, ch0, ce);
-    finish(st);
-  };
-  for (int st = 0; st < nsteps; st += 2) {
-    load_step(b1, st + 1);
-    run_step(b0, st);
-    if (st + 1 >= nsteps) break;
-    load_step(b0, st + 2);
-    run_step(b1, st + 1);
-  }
-}
-
-size_t gemv_smem_bytes(int T, int K) {
-  const int kpad = (K + kChunk - 1) / kChunk * kChunk;
-  return (size_t)T * (kpad + 8) * sizeof(__nv_bfloat16);
-}
-
-cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream, int num_sms) {
-  const size_t smem = gemv_smem_bytes(a.T, a.K);
-  // the static arrays count against the same limit as the dynamic buffer
-  const size_t static_smem = sizeof(float) * (2 * kGemvWarps * kGemvRows * kGemvRows + kGemvWarps * kMaxRows);
-  if (smem + static_smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(q8_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int ngroups = (a.N + kGemvRows - 1) / kGemvRows;
-  // with the norm prologue every CTA stages and normalises x again: fewer CTAs, more row groups
-  // each (measured on the decode shapes; the sum order does not depend on the grid)
-  int blocks = num_sms * (a.norm_w != nullptr ? kGemvCtasPerSm / 2 : kGemvCtasPerSm);
-  if (blocks > ngroups) blocks = ngroups;
-  q8_gemv_kernel<<<blocks, kGemvThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // T > 8: pipelined tile kernel, K split over a cluster
@@ -616,16 +335,6 @@ cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream, int* resident) {
   return cudaGetLastError();
 }
 
-int num_sms() {
-  static const int count = [] {
-    int device = 0;
-    int n = 132;
-    if (cudaGetDevice(&device) == cudaSuccess) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    return n;
-  }();
-  return count;
-}
-
 int q8_matmul_splits(const void* x, const void* q, const void* s, const void* norm_w, const void* residual, void* y,
                      int T, int N, int K, float eps, int splits, int width, void* stream_ptr, int* resident) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -642,8 +351,8 @@ int q8_matmul_splits(const void* x, const void* q, const void* s, const void* no
   }
   GemvArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
              static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(norm_w),
-             static_cast<const __nv_bfloat16*>(residual), static_cast<float*>(y), T, N, K, eps};
-  return (int)launch_gemv(a, stream, num_sms());
+             static_cast<const __nv_bfloat16*>(residual), static_cast<float*>(y), T, N, K, eps, 0, 0.f};
+  return (int)launch_gemv<kFull>(a, stream, num_sms());
 }
 
 }  // namespace

@@ -92,17 +92,22 @@ def split_bounds(K: int, splits: int) -> list:
     return [(min(r * nch // splits * CHUNK, K), min((r + 1) * nch // splits * CHUNK, K)) for r in range(splits)]
 
 
-def q8_matmul_split_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, splits: int) -> torch.Tensor:
-    """The kernel's schedule in torch: each split's partial product in f32,
-    the partials summed in rank order (bf16 operands, as
-    :func:`q8_matmul_plain`)."""
-    w = dequantize(q, s).float()
+def split_product(x: torch.Tensor, w: torch.Tensor, splits: int) -> torch.Tensor:
+    """``bf16(x) · wᵀ`` (``w`` f32 ``[out, in]``) as the kernels sum it: each
+    split's partial product in f32, the partials summed in rank order."""
     xf = x.to(torch.bfloat16).float()
     acc = None
     for lo, hi in split_bounds(x.shape[-1], splits):
         part = torch.matmul(xf[..., lo:hi], w[:, lo:hi].t())
         acc = part if acc is None else acc + part
     return acc
+
+
+def q8_matmul_split_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, splits: int) -> torch.Tensor:
+    """The kernel's schedule in torch: each split's partial product in f32,
+    the partials summed in rank order (bf16 operands, as
+    :func:`q8_matmul_plain`)."""
+    return split_product(x, dequantize(q, s).float(), splits)
 
 
 def q8_matmul_fused_plain(

@@ -2,15 +2,22 @@
 
 Counterpart of the reference's ``scripts/exp_q8_kperm_probe.py`` and its TPU
 kernels ``_q8_matmul_perm_2d`` and ``_q8_matmul_stacked_perm_2d``; the CUDA
-kernel is ``lwt_q8_matmul_perm`` in ``csrc/q8_probe.cu``.
+entry is ``lwt_q8_matmul_perm`` in ``csrc/q8_probe.cu``, an instantiation of
+the shipped decode GEMV's body (``csrc/q8_gemv.cuh``) that differs from the
+shipped product in its per-chunk term alone.
 
 Within every ``block_k`` block of the k-axis, permuted column ``a*nb + b``
 holds original column ``b*32 + a`` (``nb = block_k / 32``), so the scale of
 permuted column ``j`` is ``s[o, j % nb]``. On the TPU that made the scale
 expansion a free tiled repeat. The H100's GEMV multiplies one per-32 scale in
 registers, so here the layout asks the opposite question: what it costs a
-16-quant load to need 16 scales. The product is exact: the same terms as the
-natural layout, summed in another order.
+lane's 16-quant load to need 16 scales (at ``block_k`` a multiple of 512 they
+are one 32-byte window of the row's scales, read from L1 after the row's
+first lane). The product is exact: the same bf16 products as the natural
+layout, summed in another order. Its schedule in torch is
+:func:`q8_matmul_perm_split_plain`. At T <= 8 it runs the shipped GEMV's
+schedule; above 8 rows the shipped product is the tile kernel, and the
+comparison with it means nothing there.
 
     python -m light_whisper_tpu_torch.scripts.exp_q8_kperm_probe --selftest  # exactness
     python -m light_whisper_tpu_torch.scripts.exp_q8_kperm_probe --bench     # per-call chain A/B
@@ -32,8 +39,10 @@ from light_whisper_tpu_torch.ops.q8_matmul import (
     _aligned,
     _device_kind,
     _require,
+    GEMV_SPLITS,
     q8_matmul_plain,
     q8_matmul_stacked,
+    split_product,
 )
 from light_whisper_tpu_torch.scripts._probe import (
     HBM_BYTES_PER_S,
@@ -85,6 +94,15 @@ def expand_scales_perm(s, block_k: int):
 def q8_matmul_perm_plain(xp: torch.Tensor, qp: torch.Tensor, s: torch.Tensor, block_k: int) -> torch.Tensor:
     """Unpermute, then the natural product (``q8_matmul_plain``)."""
     return q8_matmul_plain(unpermute_kaxis(xp, block_k), unpermute_kaxis(qp, block_k), s)
+
+
+def q8_matmul_perm_split_plain(xp: torch.Tensor, qp: torch.Tensor, s: torch.Tensor, block_k: int,
+                               splits: int = GEMV_SPLITS) -> torch.Tensor:
+    """The kernel's schedule in torch: the permuted weights dequantised with
+    their own scales (``bf16(q·s)`` a column), each split of the permuted K
+    axis summed in f32, the partials in rank order."""
+    w = qp.to(torch.bfloat16) * expand_scales_perm(s.to(torch.bfloat16), block_k)
+    return split_product(xp, w.float(), splits)
 
 
 def _launch(form: str, xp: torch.Tensor, qp: torch.Tensor, s: torch.Tensor, block_k: int) -> torch.Tensor:

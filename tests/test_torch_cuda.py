@@ -334,30 +334,54 @@ def test_fused_gateup_silu(cuda):
     _within_one_ulp(got, ffn.fused_gateup_silu_plain(h, gq, gs, 1))
 
 
-@pytest.mark.parametrize("T,N,K", [(1, 4096, 1024), (8, 1024, 3072), (12, 300, 512)])
+@pytest.mark.parametrize("T,N,K", [(1, 4096, 1024), (8, 1024, 3072), (12, 300, 512), (8, 300, 512)])
 def test_probe_variants(cuda, T, N, K):
-    """noscale within 1e-4 relative; load bitwise (integer sums)."""
+    """noscale within 1e-4 relative of its plain and its split plain version
+    (the GEMV's four K splits); load bitwise (integer sums)."""
     q, s = _weights(1, N, K, seed=K, device=cuda)
     x = torch.randn(T, K, device=cuda).to(torch.bfloat16)
     before = cb.LAUNCHES["q8_probe"]
-    _close(cb.q8_probe("noscale", x, q[0], s[0]), cb.noscale_plain(x, q[0]))
+    got = cb.q8_probe("noscale", x, q[0], s[0])
+    _close(got, cb.noscale_plain(x, q[0]))
+    _close(got, cb.noscale_split_plain(x, q[0]))
     got = cb.q8_probe("load", x, q[0], s[0])
     torch.testing.assert_close(got, cb.load_plain(q[0], T), rtol=0, atol=0)
     assert cb.LAUNCHES["q8_probe"] == before + 2
 
 
-@pytest.mark.parametrize("T,N,K,block_k", [(1, 6144, 1024, 512), (8, 1024, 3072, 512), (5, 256, 2048, 2048)])
+@pytest.mark.parametrize("T,N,K,block_k", [(1, 6144, 1024, 512), (8, 1024, 3072, 512), (5, 256, 2048, 2048),
+                                           (8, 6144, 2048, 2048), (12, 300, 1024, 512), (3, 256, 1024, 256)])
 def test_perm_matmul(cuda, T, N, K, block_k):
-    """The k-permuted product within 1e-4 relative of the natural one."""
+    """The k-permuted product within 1e-4 relative of the natural one and of
+    its split plain version (block_k 256: the scales one at a time, not a
+    16-wide window)."""
     q, s = _weights(2, N, K, seed=N, device=cuda)
     qp = kp.permute_kaxis(q, block_k).contiguous()
     x = torch.randn(T, K, device=cuda).to(torch.bfloat16)
     before = dict(kp.LAUNCHES)
     _close(kp.q8_matmul_perm(x, qp[1], s[1], block_k), q8.q8_matmul_plain(x, q[1], s[1]))
     xp = kp.permute_kaxis(x, block_k).contiguous()
-    _close(kp.q8_matmul_stacked_perm_2d(xp, qp, s, 0, block_k), q8.q8_matmul_plain(x, q[0], s[0]))
+    got = kp.q8_matmul_stacked_perm_2d(xp, qp, s, 0, block_k)
+    _close(got, q8.q8_matmul_plain(x, q[0], s[0]))
+    _close(got, kp.q8_matmul_perm_split_plain(xp, qp[0], s[0], block_k))
     assert kp.LAUNCHES == {"q8_matmul_perm": before["q8_matmul_perm"] + 1,
                            "q8_matmul_stacked_perm": before["q8_matmul_stacked_perm"] + 1}
+
+
+@pytest.mark.parametrize("block_k", [512, 2048])
+def test_probe_rows_are_the_same_batched_and_alone(cuda, block_k):
+    """The probes run the shipped GEMV's instructions at every T: each row of
+    a T=8 call is bitwise the row called alone."""
+    N, K = 1024, 2048
+    q, s = _weights(1, N, K, seed=block_k, device=cuda)
+    qp = kp.permute_kaxis(q[0], block_k).contiguous()
+    x = torch.randn(8, K, device=cuda).to(torch.bfloat16)
+    for call in (lambda rows: cb.q8_probe("noscale", rows, q[0], s[0]),
+                 lambda rows: kp.q8_matmul_perm_2d(rows, qp, s[0], block_k)):
+        batched = call(x)
+        alone = torch.cat([call(x[t:t + 1]) for t in range(8)])
+        torch.cuda.synchronize()
+        assert torch.equal(batched, alone)
 
 
 # -- the redesigned Q8 kernels at their edges: the GEMV (T <= 8) on the tensor

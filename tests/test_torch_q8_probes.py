@@ -11,10 +11,18 @@ cache at import, so its ``noscale`` and ``dma`` kernel bodies (``:85-99``,
   1e-5 of max|ref| at 8 rows (the same bf16 products, summed in another
   order);
 - ``noscale``: 1e-5 of max|ref| against the numpy body (integer weights,
-  bf16 activations, f32 sums); ``load``: bitwise (integer sums).
+  bf16 activations, f32 sums); ``load``: bitwise (integer sums);
+- the GEMV's schedule in torch (``noscale_split_plain``,
+  ``q8_matmul_perm_split_plain``: four K splits summed in rank order) against
+  the plain versions and the reference bodies: 1e-5 of max|ref| (the same
+  exact products, f32 sums in another order).
+
+The probe kernels are instantiations of the shipped GEMV's body; a scan of
+the CUDA sources keeps them so.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -22,12 +30,13 @@ import numpy as np
 import pytest
 import torch
 
-from light_whisper_tpu_torch.ops.q8_matmul import q8_matmul_plain
+from light_whisper_tpu_torch.ops.q8_matmul import GEMV_SPLITS, q8_matmul_plain, split_bounds
 from light_whisper_tpu_torch.scripts import _probe
 from light_whisper_tpu_torch.scripts import exp_q8_compute_bound as cb
 from light_whisper_tpu_torch.scripts import exp_q8_kperm_probe as kp
 
 REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "light_whisper_tpu_torch" / "csrc"
 
 
 @pytest.fixture(scope="module")
@@ -178,3 +187,98 @@ def test_probe_bytes_and_the_timed_entry_points_need_a_card(monkeypatch):
         cb.main(["--device", "cpu"])
     with pytest.raises(SystemExit, match="times the card"):
         kp.bench("cpu")
+
+
+# -- the GEMV's schedule in torch: four K splits of 64-wide chunks, summed in rank order
+
+
+def _within(got, want, rel=1e-5):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+@pytest.mark.parametrize("T,out_f,in_f", [(1, 300, 512), (8, 300, 3072), (12, 256, 512), (8, 1024, 3072)])
+def test_noscale_split_plain_holds_to_the_plain_version_and_the_reference_body(T, out_f, in_f):
+    """N = 300 ends in a partial group of 8 rows; K = 512 gives each of the
+    four warps two chunks; T = 12 takes two row groups of 8."""
+    rng = np.random.default_rng(T * out_f + in_f)
+    q, _ = _q8(rng, 1, out_f, in_f)
+    x = rng.standard_normal((T, in_f)).astype(np.float32)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q[0])
+    got = cb.noscale_split_plain(xt, qt)
+    assert got.dtype == torch.float32 and got.shape == (T, out_f)
+    _within(got.numpy(), cb.noscale_plain(xt, qt).numpy())
+    _within(got.numpy(), _noscale_body(x, q[0], 128 if out_f % 128 == 0 else out_f, cb.LOAD_BLOCK_K))
+    # integer-valued activations: every partial sum is exact, so the split order cannot show
+    xi = torch.from_numpy(rng.integers(-4, 4, size=(T, in_f)).astype(np.float32))
+    assert torch.equal(cb.noscale_split_plain(xi, qt), cb.noscale_plain(xi, qt))
+
+
+def test_split_bounds_cut_whole_chunks_over_the_four_warps():
+    assert GEMV_SPLITS == 4
+    assert split_bounds(512, GEMV_SPLITS) == [(0, 128), (128, 256), (256, 384), (384, 512)]
+    assert split_bounds(3072, GEMV_SPLITS) == [(0, 768), (768, 1536), (1536, 2304), (2304, 3072)]
+    # K = 1056: 17 chunks, the last one half; warps take 4, 4, 4 and 5 chunks
+    assert split_bounds(1056, GEMV_SPLITS) == [(0, 256), (256, 512), (512, 768), (768, 1056)]
+
+
+@pytest.mark.parametrize("T,out_f,in_f,block_k", [(1, 300, 512, 512), (8, 300, 3072, 512), (12, 256, 2048, 2048),
+                                                  (8, 300, 4096, 2048)])
+def test_perm_split_plain_holds_to_the_plain_version_and_the_reference_kernel(ref, T, out_f, in_f, block_k):
+    rng = np.random.default_rng(T + out_f + block_k)
+    q, s = _q8(rng, 1, out_f, in_f)
+    qp = np.ascontiguousarray(kp.permute_kaxis(q[0], block_k))
+    x = rng.standard_normal((T, in_f)).astype(np.float32)
+    xp = kp.permute_kaxis(_bf16(x), block_k)
+    s_bf = jnp.asarray(s[0]).astype(jnp.bfloat16)
+    st = torch.from_numpy(np.asarray(s_bf.astype(jnp.float32))).to(torch.bfloat16)
+    xpt, qpt = torch.from_numpy(np.ascontiguousarray(xp)), torch.from_numpy(qp)
+    got = kp.q8_matmul_perm_split_plain(xpt, qpt, st, block_k)
+    assert got.dtype == torch.float32 and got.shape == (T, out_f)
+    _within(got.numpy(), kp.q8_matmul_perm_plain(xpt, qpt, st, block_k).numpy())
+    # the reference runs 8 rows or more: at one row XLA on the CPU keeps the interpret-mode
+    # kernel's dequantised weights in f32 instead of rounding them to bf16 (rows are independent)
+    rows = max(T, 8)
+    xp_ref = np.concatenate([xp, np.zeros((rows - T, in_f), np.float32)])
+    want = np.asarray(ref._q8_matmul_perm_2d(jnp.asarray(xp_ref), jnp.asarray(qp), s_bf, rows, out_f, block_k,
+                                             interpret=True))[:T]
+    _within(got.numpy(), want)
+    # and the natural product on unpermuted operands
+    natural = q8_matmul_plain(torch.from_numpy(x), torch.from_numpy(q[0]), st)
+    _within(got.numpy(), natural.numpy())
+
+
+def test_perm_split_plain_dequantises_each_column_with_its_own_scale():
+    """Integer activations and power-of-two scales: every product and partial
+    sum is exact, so the permuted schedule equals the natural product bitwise."""
+    rng = np.random.default_rng(9)
+    block_k, T, out_f, in_f = 512, 3, 40, 1024
+    q = torch.from_numpy(rng.integers(-127, 127, size=(out_f, in_f), dtype=np.int8))
+    s = torch.from_numpy(2.0 ** rng.integers(-6, 0, size=(out_f, in_f // 32)).astype(np.float32)).to(torch.bfloat16)
+    x = torch.from_numpy(rng.integers(-4, 4, size=(T, in_f)).astype(np.float32))
+    got = kp.q8_matmul_perm_split_plain(kp.permute_kaxis(x, block_k), kp.permute_kaxis(q, block_k).contiguous(), s,
+                                        block_k)
+    assert torch.equal(got, q8_matmul_plain(x, q, s))
+
+
+def _code(path):
+    """The source with its comments taken out."""
+    text = path.read_text()
+    return re.sub(r"//[^\n]*", "", re.sub(r"/\*.*?\*/", "", text, flags=re.S))
+
+
+def test_the_probes_are_instantiations_of_the_shipped_gemv():
+    """``q8_probe.cu`` has no kernel of its own: its variants are the body in
+    ``q8_gemv.cuh`` that ``lwt_q8_matmul`` runs at T <= 8, so a change to the
+    GEMV carries the probes with it."""
+    probe, matmul, gemv = _code(CSRC / "q8_probe.cu"), _code(CSRC / "q8_matmul.cu"), _code(CSRC / "q8_gemv.cuh")
+    for text in (probe, matmul):
+        assert '#include "q8_gemv.cuh"' in text
+    assert "__global__" not in probe
+    assert "__global__" in gemv and "q8_gemv_kernel" in gemv
+    assert "launch_gemv<kFull>" in matmul
+    for variant in ("kNoScale", "kLoad", "kPerm"):
+        assert f"launch_probe<{variant}>" in probe
+    # the body is defined once: no source names the kernel but the header
+    assert [path.name for path in sorted(CSRC.glob("*.cu")) if "q8_gemv_kernel" in _code(path)] == []
