@@ -33,7 +33,7 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    kernel on the card, ``attention_chunked`` on the CPU);
 5. a 0.6B-width Q8_0 GGUF with random weights from a seed, served by the
    port's engine server through the wire loop on in-memory pipes, driven
-   along five paths, each with the kernels' launch counts set to 0 just
+   along six paths, each with the kernels' launch counts set to 0 just
    before it and read just after:
    - slice: a 2 s and a 12 s speech-like request and silence, one at a time;
    - batch: four concurrent requests of 2-3 s, then four of 4-12 s, written
@@ -51,6 +51,18 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
      (``fused_ffn_step`` once a layer every decode step), alternated three
      times with the default route for the decode ms/step of each; the replies
      of each route must be identical run to run;
+   - interim (session reuse on; the five paths above run with
+     ``LIGHT_WHISPER_DISABLE_SESSION_REUSE=1``, as the server served every
+     request before its sessions): the app's interim loop, with the reference's
+     interim decode budget of 96 tokens. One recording ticks on a named stream
+     at 3, 4, ..., 9 s (session hits, incremental prefills and VAD prefix reuse
+     required), each tick printed beside the stateless ``inference_ms`` of the
+     same window (and, where the texts differ on the same trimmed bytes, the
+     token where they part and the stateless top-2 gap there); two streams'
+     ticks written at once while a job holds the
+     device coalesce into batched ticks (fresh, then extending; no degrade), whose replies
+     must equal the same ticks one at a time. Then, on the model, ticks held
+     against stateless ``transcribe`` under ``narrow_verdict``'s rule;
 6. ``engine_cli serve`` in a subprocess: init, one transcribe, exit.
 
 Then the ``nvidia-smi`` line, a JSON line with one entry per kernel and, as
@@ -331,6 +343,9 @@ def phase_kernels(torch):
         return ("bf16 matmul ref", lambda i: torch.matmul(x, wd[i % wd.shape[0]].t()))
 
     for case, T, N, K in (("logits T=1 152576x1024", 1, 152576, 1024),
+                          # every row of an interim tick's segment (draft verification)
+                          ("logits T=128 152576x1024", 128, 152576, 1024),
+                          ("logits T=192 152576x1024", 192, 152576, 1024),
                           ("enc.fc2 T=156 896x3584", 156, 896, 3584),
                           ("enc.conv_out T=156 896x7680", 156, 896, 7680),
                           ("enc.fc1 T=6656 3584x896", 6656, 3584, 896),
@@ -355,7 +370,9 @@ def phase_kernels(torch):
     proj = {"qkv": (4096, 1024), "o": (1024, 2048), "gateup": (6144, 1024), "down": (1024, 3072)}
     stacks = {name: weights(L, N, K) for name, (N, K) in proj.items()}
     deq = {name: q8.dequantize(*stacks[name]) for name in proj}
-    for T in (64, 192, 3968):
+    # T=128 and 256: an interim tick's segment prefill (the product takes no
+    # position: a rollback start changes nothing here)
+    for T in (64, 128, 192, 256, 3968):
         for name, (N, K) in proj.items():
             qw, sw = stacks[name]
             x = randn(T, K).to(torch.bfloat16)
@@ -839,7 +856,7 @@ def phase_narrow(torch):
                 f"{name}: {rows} prompt rows at capacity 8192 take {route}")
         cache = dec.init_cache(cfg.decoder, 8192, model.cache_dtype, model.device)
         before = fp.LAUNCHES["flash_prefill"]
-        logits[name] = model._encode_and_prefill(*request, cache).float().cpu()[: cfg.decoder.vocab_size]
+        logits[name] = model._encode_and_prefill(*request, cache)[0].float().cpu()[: cfg.decoder.vocab_size]
         torch.cuda.synchronize()
         launched = fp.LAUNCHES["flash_prefill"] - before
         require(launched == (cfg.decoder.block_count if name == "card" else 0),
@@ -1232,6 +1249,176 @@ def phase_fused_ffn(torch, engine, client, cfg, launches: Launches, reply_12s: d
         f"decode {off:.3f} ms/step without the route, {on:.3f} with it, medians of {rounds})")
 
 
+INTERIM_BUDGET = 96  # the reference's INTERIM_MAX_NEW_TOKENS: random weights never emit EOS
+
+
+def _session(engine, stream):
+    return engine._session_pool._bridges[stream]._inc
+
+
+def _tick_counts(inc):
+    return (inc.full_prefills, inc.incremental_prefills, inc.draft_tokens_offered, inc.draft_tokens_accepted)
+
+
+def phase_interim(torch, engine, client, launches: Launches):
+    """The app's interim loop on named streams, session reuse on: one stream
+    ticking at 3, 4, ..., 9 s of one recording; then two streams whose ticks
+    are written at once while a job holds the device, so that they coalesce
+    into batched ticks (fresh, then extending), replayed one at a time on two
+    new streams.
+    The decode budget is ``INTERIM_BUDGET`` (the model's is restored after)."""
+    import numpy as np
+
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.serving.incremental import IncrementalTranscriber
+
+    model = engine.model
+    keep = model.max_new_tokens
+    model.max_new_tokens = INTERIM_BUDGET
+    recording = np.concatenate([np.zeros(4800, np.float32), speechlike(9.0, seed=SEED + 100)])
+    windows = [recording[: 4800 + s * 16000] for s in range(3, 10)]
+    pair = [speechlike(5.0, seed=SEED + 101), speechlike(5.0, seed=SEED + 102)]
+    rid = 600
+    t0 = time.perf_counter()
+    # what each single request handed the model: (session key, trimmed audio, tokens)
+    calls = []
+    real_transcribe_model = engine._transcribe_model
+
+    def spy(audio, session_key):
+        result = real_transcribe_model(audio, session_key)
+        calls.append((session_key, np.array(audio), list(result.tokens)))
+        return result
+
+    engine._transcribe_model = spy
+    try:
+        launches.start()
+        ticks = []
+        for window in windows:
+            rid += 1
+            pool = engine._session_pool  # made by the first request with sessions on
+            bridge = pool._bridges.get("interim") if pool else None
+            before = _tick_counts(bridge._inc) if bridge else (0, 0, 0, 0)
+            reply = client.call(_transcribe_cmd(rid, window, stream="interim"))
+            require(reply.get("success") is True and reply.get("backend") == "cuda", f"interim tick {rid}: {reply}")
+            inc = _session(engine, "interim")
+            after = _tick_counts(inc)
+            ticks.append((len(window) / 16000, reply, [a - b for a, b in zip(after, before)],
+                          len(inc.last_decode_step_s)))
+        incremental = inc.incremental_prefills  # read now: later streams may evict this session
+
+        def coalesced(streams, clips):
+            """The ticks written at once while a job holds the device: they
+            queue together and run as one batch when it lets go."""
+            nonlocal rid
+            rids = list(range(rid + 1, rid + 1 + len(clips)))
+            rid = rids[-1]
+            scheduler = engine._decode_scheduler()
+            running, release = threading.Event(), threading.Event()
+            scheduler.submit("interim-hold", lambda: (running.set(), release.wait(60)), supersede=False)
+            try:
+                require(running.wait(60), "the scheduler did not start the holding job")
+                client.send(*(_transcribe_cmd(r, clip, stream=s) for r, clip, s in zip(rids, clips, streams)))
+                deadline = time.monotonic() + 60
+                while len(scheduler._queue) < len(clips) and time.monotonic() < deadline:
+                    time.sleep(0.002)
+                require(len(scheduler._queue) == len(clips), f"{len(scheduler._queue)} ticks queued of {len(clips)}")
+            finally:
+                release.set()
+            replies = {}
+            for _ in rids:
+                reply = client.read()
+                replies[reply.get("request_id")] = reply
+            for r in rids:
+                require(replies[r].get("success") is True, f"coalesced tick {r}: {replies[r]}")
+            return [replies[r] for r in rids]
+
+        rounds = [[clip[: int(s * 16000)] for clip in pair] for s in (3.0, 4.0, 5.0)]
+        before = client.call({"action": "stats", "request_id": rid + 1})["stats"]["batched_tick_dispatches"]
+        rid += 1
+        batched = [coalesced(["tick-a", "tick-b"], clips) for clips in rounds]
+        got = launches.read("interim", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
+                                        "decode_attention", "decode_attention_batched"])
+        stats = client.call({"action": "stats", "request_id": rid + 1})["stats"]
+        rid += 1
+
+        # the same windows stateless, for the time beside each tick; where the
+        # texts differ on the same trimmed bytes, where the tokens part and
+        # the stateless top-2 gap there (the tick's session rows come from
+        # other programs, at another capacity: its tokens may part from the
+        # stateless ones at a near-tie, as the reference's do)
+        tick_calls = [c for c in calls if c[0] == "interim"]
+        del calls[:]
+        for k, (seconds, reply, (full, incr, offered, accepted), steps) in enumerate(ticks):
+            os.environ["LIGHT_WHISPER_DISABLE_SESSION_REUSE"] = "1"
+            try:
+                rid += 1
+                plain = client.call(_transcribe_cmd(rid, recording[: int(seconds * 16000)]))
+            finally:
+                os.environ.pop("LIGHT_WHISPER_DISABLE_SESSION_REUSE", None)
+            require(plain.get("success") is True, f"stateless {seconds} s: {plain}")
+            note = ""
+            if plain["text"] != reply["text"]:
+                _key, tick_audio, tick_tokens = tick_calls[k]
+                _key, plain_audio, plain_tokens = calls[-1]
+                if np.array_equal(tick_audio, plain_audio):
+                    parted = _divergence(model, plain_audio, plain_tokens, tick_tokens)
+                    note = (f" (text differs on the same trimmed bytes: parts at token {parted[0]}, stateless "
+                            f"top-2 gap {parted[1]:.3g}, {'inside' if parted[1] <= TIE_BAND else 'outside'} "
+                            f"the {TIE_BAND:g} tie band)" if parted else " (text differs, tokens equal)")
+                else:
+                    note = (f" (text differs: trimmed to {len(tick_audio)} samples, stateless "
+                            f"{len(plain_audio)})")
+            say(f"  tick {seconds:.1f} s: inference_ms={reply['inference_ms']} vad_ms={reply['vad_ms']} "
+                f"{'incremental' if incr else 'full'} prefill, draft {accepted}/{offered} accepted, "
+                f"decode_steps={steps}; stateless inference_ms={plain['inference_ms']} vad_ms={plain['vad_ms']}"
+                f"{note}")
+
+        # the coalesced ticks one at a time, on two new streams
+        for k, clips in enumerate(rounds):
+            for i, (clip, stream) in enumerate(zip(clips, ("solo-a", "solo-b"))):
+                rid += 1
+                solo = client.call(_transcribe_cmd(rid, clip, stream=stream))
+                require(solo.get("text") == batched[k][i].get("text"),
+                        f"coalesced tick {k} of stream {i}: {batched[k][i].get('text')!r} != one at a time "
+                        f"{solo.get('text')!r}")
+        say(f"  coalesced ticks: 3 rounds of 2 streams, replies equal to the same ticks one at a time; "
+            f"inference_ms {[[r['inference_ms'] for r in rnd] for rnd in batched]}")
+
+        say(f"  session stats: hits={stats['session_hits']} resets={stats['session_resets']} "
+            f"vad_prefix_reuse={stats['vad_prefix_reuse']} batched_tick_dispatches={stats['batched_tick_dispatches']} "
+            f"batched_tick_degrades={stats['batched_tick_degrades']} speculative={stats['speculative_decoding']}")
+        require(stats["session_streams"]["interim"]["hits"] >= 6,
+                f"interim stream: {stats['session_streams']['interim']} (>= 6 hits)")
+        require(incremental >= 1, "no incremental prefill on the interim stream")
+        require(stats["vad_prefix_reuse"] >= 1, "no VAD prefix reuse")
+        require(stats["batched_tick_dispatches"] - before == len(rounds),
+                f"{stats['batched_tick_dispatches'] - before} batched tick dispatches for {len(rounds)} rounds")
+        require(stats["batched_tick_degrades"] == 0,
+                f"batched ticks degraded: {stats['batched_tick_degrades']} ({stats['batched_tick_last_error']})")
+
+        # tick against stateless on the model, under the narrow gate's rule
+        inc = IncrementalTranscriber(model, max_new_tokens=INTERIM_BUDGET)
+        for seconds in (3, 5, 7, 9):
+            clip = recording[: seconds * 16000]
+            tick = inc.transcribe_window(clip).tokens
+            if seconds == 3:
+                continue  # the first tick is a full prefill
+            stateless = model.transcribe(clip).tokens
+            parted = _divergence(model, clip, stateless, tick)
+            verdict = narrow_verdict(stateless, tick, [parted] if parted else [])
+            say(f"  model-level tick {seconds} s vs stateless transcribe: {len(tick)} tokens, "
+                f"{'identical' if parted is None else f'first differs at {parted[0]}, top-2 gap {parted[1]:.3g}'}")
+            require(verdict is None, f"tick {seconds} s: {verdict}")
+        require(inc.incremental_prefills == 3, f"model-level ticks: {inc.incremental_prefills} incremental")
+    finally:
+        model.max_new_tokens = keep
+        del engine._transcribe_model  # the instance attribute; the class method again
+    say(f"phase interim: ok in {time.perf_counter() - t0:.1f} s ({len(windows)} ticks on one stream, "
+        f"{incremental} incremental; "
+        f"{stats['batched_tick_dispatches']} batched tick dispatches; launches "
+        f"{ {k: got[k] for k in ('q8_matmul', 'q8_matmul_stacked', 'q8_matmul_stacked_fused', 'decode_attention', 'decode_attention_batched')} })")
+
+
 def phase_profile(torch, model, out_dir: str, steps: int = 32):
     """torch.profiler over a 12 s transcribe (with and without
     ``LWT_FUSED_FFN``) and a B = 8 ``transcribe_batch`` of 3 s clips, each
@@ -1315,7 +1502,7 @@ def phase_cli(model_path: str):
 # ---------------------------------------------------------------------------
 
 # the main paths, driven through EngineServer
-WIRE_PATHS = ("slice", "batch", "longform", "single-pass", "fused-ffn")
+WIRE_PATHS = ("slice", "batch", "longform", "single-pass", "fused-ffn", "interim")
 KERNELS = (
     ("q8_matmul", "light_whisper_tpu_torch/csrc/q8_matmul.cu", "light_whisper_tpu/ops/q8_matmul.py:164",
      "logits T=1 152576x1024"),
@@ -1384,6 +1571,7 @@ def main(argv=None) -> int:
     from light_whisper_tpu_torch.scripts import exp_q8_kperm_probe as kp
 
     os.environ.pop("LWT_FUSED_FFN", None)  # the default route everywhere but the fused-ffn path
+    os.environ.pop("LIGHT_WHISPER_DISABLE_SESSION_REUSE", None)  # set only around the stateless paths
     try:
         card = phase_identify(torch)
         phase_build()
@@ -1393,11 +1581,17 @@ def main(argv=None) -> int:
             phase_narrow(torch)
             engine, client, model_path, cfg = start_server()
             try:
-                reply_12s = phase_slice(torch, engine, client, cfg, launches)
-                phase_batch(torch, engine, client, launches)
-                phase_longform(torch, client, launches)
-                phase_single_pass(torch, engine, client, cfg, launches)
-                phase_fused_ffn(torch, engine, client, cfg, launches, reply_12s)
+                # the stateless paths, as the server served them before its sessions
+                os.environ["LIGHT_WHISPER_DISABLE_SESSION_REUSE"] = "1"
+                try:
+                    reply_12s = phase_slice(torch, engine, client, cfg, launches)
+                    phase_batch(torch, engine, client, launches)
+                    phase_longform(torch, client, launches)
+                    phase_single_pass(torch, engine, client, cfg, launches)
+                    phase_fused_ffn(torch, engine, client, cfg, launches, reply_12s)
+                finally:
+                    os.environ.pop("LIGHT_WHISPER_DISABLE_SESSION_REUSE", None)
+                phase_interim(torch, engine, client, launches)
                 if args.profile:
                     phase_profile(torch, engine.model, args.profile)
                 bye = client.call({"action": "exit", "request_id": 999})

@@ -366,8 +366,13 @@ def _layer_forward_batch_seq(
 
 def forward(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, cache: KVCache) -> torch.Tensor:
     """Run all layers over T new positions; returns hidden states [T, D] and
-    advances ``cache`` (written in place) by T."""
+    advances ``cache`` (written in place) by T. A write past the cache's
+    capacity raises (the reference's ``dynamic_update_slice`` would clamp it
+    and a slice would truncate it, both silently)."""
     T = embeds.shape[0]
+    capacity = cache.k.shape[2]
+    if not 0 <= cache.pos <= capacity - T:
+        raise ValueError(f"positions {cache.pos}..{cache.pos + T - 1} exceed the cache capacity {capacity}")
     positions = cache.pos + torch.arange(T, device=embeds.device)
     cos, sin = rope_tables(positions, cfg.key_length, cfg.rope_freq_base)
     layers = params["layers"]
@@ -447,19 +452,23 @@ def decode_greedy(
     eos_token_id: int,
     max_new_tokens: int,
     step_times: Optional[List[float]] = None,
+    budget: Optional[int] = None,
 ) -> List[int]:
     """Greedy decode, one step per token with the argmax on the device.
 
-    Returns the generated ids, EOS excluded, at most ``max_new_tokens``
-    (the reference's on-device loop records the same ids; its final step,
-    whose token is never recorded, is skipped). ``step_times`` collects the
-    host wall of each step, synchronised by the EOS check."""
+    Returns the generated ids, EOS excluded, at most ``max_new_tokens``, or
+    ``budget`` where that is smaller (the speculative tick passes
+    ``max_new_tokens`` less its accepted draft; the reference's on-device loop
+    records the same ids; its final step, whose token is never recorded, is
+    skipped). ``step_times`` collects the host wall of each step,
+    synchronised by the EOS check."""
+    limit = max_new_tokens if budget is None else min(max_new_tokens, int(budget))
     generated: List[int] = []
     token = first_token.reshape(1)
     token_id = int(token.item())
-    while token_id != eos_token_id and len(generated) < max_new_tokens:
+    while token_id != eos_token_id and len(generated) < limit:
         generated.append(token_id)
-        if len(generated) == max_new_tokens:
+        if len(generated) == limit:
             break
         t0 = time.perf_counter()
         hidden = forward(cfg, params, embed_tokens(params, token), cache)

@@ -230,9 +230,11 @@ class Qwen3ASRModel:
 
     def _encode_and_prefill(self, padded, n_audio, ids_padded, true_len, mel_frames, num_chunks, cache):
         """log-mel → encoder → prompt splice → prefill; returns the logits of
-        the true last prompt row and leaves ``cache.pos`` at ``true_len``."""
+        the true last prompt row and the clip's mel max (a device scalar: the
+        streaming session's clip guard reads it), and leaves ``cache.pos`` at
+        ``true_len``."""
         waveform = torch.from_numpy(padded).to(self.device)
-        mel, _clip_max = wmel.log_mel_with_max(waveform, mel_frames)
+        mel, clip_max = wmel.log_mel_with_max(waveform, mel_frames)
         chunk = self.config.audio.chunk_frames
         mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * chunk - mel.shape[0]))
         audio_embeds = encode_chunks(self.config.audio, self.encoder_params, mel, n_audio, num_chunks)
@@ -244,14 +246,15 @@ class Qwen3ASRModel:
         # the padded tail wrote K/V at positions >= true_len; decode overwrites
         # them before reading (causal masking keeps positions < true_len exact)
         cache.pos = true_len
-        return dec.logits_for(self.config.decoder, self.decoder_params, hidden[true_len - 1][None])[0]
+        logits = dec.logits_for(self.config.decoder, self.decoder_params, hidden[true_len - 1][None])[0]
+        return logits, clip_max
 
     @torch.no_grad()
     def transcribe(self, audio: np.ndarray) -> TranscriptionResult:
         """Greedy transcription of mono 16 kHz audio (float32 or int16)."""
         request = self._prepare(audio)
         cache = self._cache_for(len(request[2]) + self.max_new_tokens)
-        logits = self._encode_and_prefill(*request, cache)
+        logits, _clip_max = self._encode_and_prefill(*request, cache)
         self.last_decode_step_s = []
         generated = dec.decode_greedy(
             self.config.decoder,
@@ -336,7 +339,7 @@ class Qwen3ASRModel:
         read the top-2 gap where two implementations' greedy paths part."""
         request = self._prepare(audio)
         cache = self._cache_for(len(request[2]) + len(tokens) + 1)
-        rows = [self._encode_and_prefill(*request, cache)]
+        rows = [self._encode_and_prefill(*request, cache)[0]]
         for tok in tokens:
             ids = torch.tensor([tok], device=self.device)
             hidden = dec.forward(self.config.decoder, self.decoder_params,

@@ -5,11 +5,16 @@ Same surface the engine server calls: ``probabilities`` / ``warmup`` /
 on ``device``; segmentation runs on the host (``segmenter.speech_segments``).
 Lengths are not padded to buckets. The reference's native C++ segmenter has
 the same semantics as ``speech_segments`` and is not ported.
+
+:class:`VadPrefixSession` serves the interim loop's growing buffer by
+recomputing only its tail (the reference's halo path; its host-numpy
+``StreamingVad`` cascade serves a host VAD and is not ported).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -22,6 +27,8 @@ from light_whisper_tpu_torch.models.vad import dfsmn
 from light_whisper_tpu_torch.models.vad.segmenter import SegmenterOptions, speech_segments
 
 BUNDLED_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fireredvad.gguf")
+_FINE_MAX = 16 * SAMPLE_RATE  # the reference's last fine 0.5 s bucket
+_HALO_FRAMES = 200  # > the DFSMN's 160-frame receptive field each way
 
 
 class FireRedVad:
@@ -80,3 +87,66 @@ class FireRedVad:
         if probs is None:
             probs = self.probabilities(samples)
         return speech_segments(probs, len(samples), self.options)
+
+
+class VadPrefixSession:
+    """Probabilities of a growing audio buffer, recomputing only its tail.
+
+    Frames more than the receptive field behind the previous end do not change
+    when audio is appended (the DFSMN sees ±160 frames; fbank frames are
+    sample-local), so a tick runs :meth:`FireRedVad.probabilities` on the new
+    audio plus two halos of context and stitches the result onto the cached
+    prefix: equal to the whole pass up to float reassociation. Reuse applies
+    while the buffer byte-extends the previous one and stays within 16 s;
+    anything else recomputes fresh (the stateless behaviour). Retention is one
+    buffer of at most 16 s and its probabilities."""
+
+    def __init__(self, vad: FireRedVad):
+        self._vad = vad
+        self._samples: Optional[np.ndarray] = None
+        self._probs: Optional[np.ndarray] = None
+        # ticks of one stream (or anonymous clients sharing the default
+        # stream) may run on two worker threads at once
+        self._tick_lock = threading.Lock()
+        self.reused_ticks = 0
+
+    def retained_bytes(self) -> int:
+        """Host bytes parked between ticks."""
+        with self._tick_lock:
+            return sum(int(a.nbytes) for a in (self._samples, self._probs) if a is not None)
+
+    def probabilities(self, audio: np.ndarray) -> np.ndarray:
+        with self._tick_lock:
+            return self._probabilities_locked(audio)
+
+    def _probabilities_locked(self, audio: np.ndarray) -> np.ndarray:
+        samples = np.asarray(audio, dtype=np.float32).reshape(-1)
+        prev, prev_probs = self._samples, self._probs
+        extends = not (
+            prev is None
+            or prev_probs is None
+            or len(samples) < len(prev)
+            or len(samples) > _FINE_MAX
+            or len(prev_probs) == 0
+            or not np.array_equal(samples[: len(prev)], prev)
+        )
+        if not extends:
+            probs = self._vad.probabilities(samples)
+            if 0 < len(samples) <= _FINE_MAX:
+                self._samples, self._probs = samples, probs
+            else:
+                self._samples = self._probs = None
+            return probs
+        keep = max(0, len(prev_probs) - _HALO_FRAMES)
+        fs = max(0, keep - _HALO_FRAMES)  # keep - fs >= the halo > the receptive field
+        tail = self._vad.probabilities(samples[fs * kfb.FRAME_SHIFT :])
+        probs = np.concatenate([prev_probs[:keep], tail[keep - fs :]])
+        if len(probs) != kfb.num_frames(len(samples)):
+            raise RuntimeError(f"stitched {len(probs)} frames for {kfb.num_frames(len(samples))}")
+        self.reused_ticks += 1
+        self._samples, self._probs = samples, probs
+        return probs
+
+    def speech_timestamps(self, audio: np.ndarray) -> List[Dict[str, int]]:
+        samples = np.asarray(audio, dtype=np.float32).reshape(-1)
+        return self._vad.speech_timestamps(samples, probs=self.probabilities(samples))

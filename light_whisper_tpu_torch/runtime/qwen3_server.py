@@ -7,12 +7,29 @@ empty results, outer-silence trimming that keeps inner pauses, per-request
 on. Replies keep the reference's fields one for one; ``backend`` reports
 ``cuda`` (or ``cpu`` when run on the CPU on purpose).
 
-Requests are served stateless: the reference's KV-session reuse, incremental
-VAD, trim pinning and warm-up ladder are not ported yet, and neither are their
-seams. Concurrent requests coalesce through the scheduler (``_submit_decode``
-→ ``_run_decode_batch`` → ``model.transcribe_batch``), and long recordings
-take ``_transcribe_long_form`` (``serving/longform.py``: VAD over the whole
-recording, windows, one batched decode).
+The app's interim loop re-sends one growing recording every 140-460 ms; the
+server serves those ticks through per-stream KV sessions, as the reference
+does:
+
+- ``_transcribe_model`` routes a request through its stream's
+  ``SessionBridge`` (``serving/session_pool.py``, keyed by ``options.stream``
+  or ``DEFAULT_STREAM``): audio that extends the stream's previous request
+  rolls the KV cache back to the stable prefix and verifies the previous
+  transcript as a draft (``serving/incremental.py``); other audio resets;
+- ``_vad_timestamps`` keeps a ``VadPrefixSession`` a stream (an LRU of twice
+  the session limit) that recomputes only the new tail of a growing buffer;
+- ``_stabilize_trim`` pins the leading VAD trim across ticks whose raw audio
+  extends the previous one, within ``TRIM_PIN_TOLERANCE_SAMPLES``, so the
+  trimmed bytes stay a prefix and the session keeps extending;
+- coalesced requests (``_submit_decode`` → ``_run_decode_batch``) of distinct
+  sessions run one batched tick (``serving/incremental_batch.tick_batch``,
+  ``LWT_BATCH_TICKS``); duplicate keys take ``model.transcribe_batch``.
+
+``LIGHT_WHISPER_DISABLE_SESSION_REUSE`` (read on every call) serves every
+request stateless. Long recordings take ``_transcribe_long_form``
+(``serving/longform.py``: VAD over the whole recording, windows, one batched
+decode). The reference's warm-up ladder precompiles XLA programs and is not
+ported.
 """
 
 from __future__ import annotations
@@ -31,7 +48,11 @@ from light_whisper_tpu_torch import __version__
 from light_whisper_tpu_torch.audio.pcm import decode_inline_audio, read_audio_file_mono_f32, resample_linear
 from light_whisper_tpu_torch.download.cache import QWEN3_ASR_MODELS, find_snapshot_file
 from light_whisper_tpu_torch.models.qwen3_asr.model import as_device_audio, resolve_device
+from light_whisper_tpu_torch.models.vad.api import VadPrefixSession
 from light_whisper_tpu_torch.runtime.server import CLEANUP_EVERY_N, EngineServer, ServerHooks
+from light_whisper_tpu_torch.serving import incremental_batch
+from light_whisper_tpu_torch.serving.session_bridge import transcribe_extending_batch
+from light_whisper_tpu_torch.serving.session_pool import DEFAULT_STREAM, SessionPool, max_sessions
 
 SAMPLE_RATE = 16_000
 MIN_DURATION_SECONDS = 0.5
@@ -39,6 +60,26 @@ MIN_DURATION_SECONDS = 0.5
 # (windows batched on the device) instead of one context. A request forces
 # either way with options={"long_form": bool}.
 LONG_FORM_THRESHOLD_SECONDS = 120.0
+# When a request's raw audio byte-extends the previous one on its stream, a
+# leading trim within this many samples (150 ms) of the previous one is pinned
+# to it, so that session reuse survives VAD jitter.
+TRIM_PIN_TOLERANCE_SAMPLES = 2400
+# Pins only matter for the interim loop's window (12 s and some padding);
+# longer audio re-trims fresh (the stateless behaviour) and is not retained.
+TRIM_PIN_MAX_SAMPLES = 30 * SAMPLE_RATE
+# Byte budget across all trim pins (their count follows LWT_MAX_SESSIONS).
+DEFAULT_TRIM_PIN_MAX_BYTES = 16 << 20
+
+
+def _trim_pin_budget_bytes() -> int:
+    try:
+        return max(0, int(os.environ.get("LWT_TRIM_PIN_MAX_BYTES", DEFAULT_TRIM_PIN_MAX_BYTES)))
+    except ValueError:
+        return DEFAULT_TRIM_PIN_MAX_BYTES
+
+
+def _session_reuse_disabled() -> bool:
+    return bool(os.environ.get("LIGHT_WHISPER_DISABLE_SESSION_REUSE"))
 
 
 class Qwen3EngineServer:
@@ -69,6 +110,7 @@ class Qwen3EngineServer:
 
         self.model = None
         self.vad = None
+        self._session_pool = None  # per-stream KV sessions; False when the model has none
         self._scheduler = None  # device serialization + batch coalescing
         self._init_timings: Dict[str, float] = {}  # per-phase init walls
         self._stats_lock = threading.Lock()
@@ -83,6 +125,12 @@ class Qwen3EngineServer:
         self._vad_rejected = 0
         self._batched_requests = 0
         self._batch_dispatches = 0
+        self._batched_tick_dispatches = 0  # coalesced ticks that kept their sessions
+        # per session key: (raw audio, start, end) of its last request's trim
+        self._prev_trims: Dict[str, Any] = {}
+        # per session key: incremental VAD over the growing buffer
+        self._vad_sessions: Dict[str, Any] = {}
+        self._vad_prefix_reuse = 0
         self._last_load_error: Optional[str] = None
         self._hotword_corrector = None
 
@@ -228,11 +276,11 @@ class Qwen3EngineServer:
     def _resample(audio: np.ndarray, source_rate: int) -> np.ndarray:
         return resample_linear(audio, source_rate, SAMPLE_RATE)
 
-    def _filter_speech(self, audio: np.ndarray):
+    def _filter_speech(self, audio: np.ndarray, session_key: str):
         """Trim leading and trailing silence only: inner pauses stay, so the
         model still sees natural phrase timing."""
         started = time.perf_counter()
-        segments = self.vad.speech_timestamps(audio)
+        segments = self._vad_timestamps(audio, session_key)
         vad_ms = (time.perf_counter() - started) * 1000
         with self._stats_lock:
             self._vad_calls += 1
@@ -242,15 +290,100 @@ class Qwen3EngineServer:
         if end <= start:
             with self._stats_lock:
                 self._vad_rejected += 1
+                self._prev_trims.pop(session_key, None)
             return np.empty(0, dtype=np.float32), 0, vad_ms
+        start, end = self._stabilize_trim(audio, start, end, session_key)
         return np.ascontiguousarray(audio[start:end]), len(segments), vad_ms
 
-    def _retained_audio_bytes(self) -> Dict[str, int]:
-        """Host audio kept between requests; the stateless path keeps none."""
-        return {"trim_pin_retained_bytes": 0, "vad_session_retained_bytes": 0}
+    def _vad_timestamps(self, audio: np.ndarray, session_key: str):
+        """Segments through the stream's ``VadPrefixSession``, which
+        recomputes only the new tail of a growing buffer; with session reuse
+        off, or a VAD without ``probabilities``, the stateless pass."""
+        if _session_reuse_disabled() or not hasattr(self.vad, "probabilities"):
+            return self.vad.speech_timestamps(audio)
+        with self._stats_lock:
+            session = self._vad_sessions.pop(session_key, None) or VadPrefixSession(self.vad)
+            self._vad_sessions[session_key] = session  # LRU touch
+            while len(self._vad_sessions) > 2 * max_sessions():
+                self._vad_sessions.pop(next(iter(self._vad_sessions)))
+            reused_before = session.reused_ticks
+        segments = session.speech_timestamps(audio)
+        with self._stats_lock:
+            self._vad_prefix_reuse += session.reused_ticks - reused_before
+        return segments
 
-    def _transcribe_model(self, audio: np.ndarray):
-        return self.model.transcribe(audio)
+    def _stabilize_trim(self, raw: np.ndarray, start: int, end: int, session_key: str):
+        """Pin the leading trim across a growing interim window.
+
+        Session reuse compares the trimmed bytes, so a trim start that moves by
+        a VAD hop between ticks would turn every tick into a full prefill.
+        When the raw audio byte-extends the stream's previous raw audio and the
+        new start lies within ``TRIM_PIN_TOLERANCE_SAMPLES`` of the previous
+        one, the previous start is kept and the end stays monotone (the pinned
+        boundary still lies in silence the VAD confirmed). The O(n) compare
+        runs outside ``_stats_lock``."""
+        if _session_reuse_disabled():
+            return start, end
+        if len(raw) > TRIM_PIN_MAX_SAMPLES:
+            with self._stats_lock:
+                self._prev_trims.pop(session_key, None)
+            return start, end
+        with self._stats_lock:
+            prev = self._prev_trims.get(session_key)
+        if prev is not None:
+            prev_raw, prev_start, prev_end = prev
+            if (len(raw) >= len(prev_raw) and abs(start - prev_start) <= TRIM_PIN_TOLERANCE_SAMPLES
+                    and prev_start < end and np.array_equal(raw[: len(prev_raw)], prev_raw)):
+                start = prev_start
+                end = max(end, min(prev_end, len(raw)))
+        cap = 2 * max_sessions()
+        budget = _trim_pin_budget_bytes()
+        with self._stats_lock:
+            # at most 2x the session limit of pins and LWT_TRIM_PIN_MAX_BYTES
+            # in all, oldest first out; a pin over the budget alone is dropped
+            self._prev_trims.pop(session_key, None)
+            if raw.nbytes <= budget:
+                self._prev_trims[session_key] = (raw, start, end)
+            while len(self._prev_trims) > cap or (
+                len(self._prev_trims) > 1
+                and sum(r.nbytes for r, _s, _e in self._prev_trims.values()) > budget
+            ):
+                self._prev_trims.pop(next(iter(self._prev_trims)))
+        return start, end
+
+    def _retained_audio_bytes(self) -> Dict[str, int]:
+        """Host bytes kept between requests by the trim pins and the VAD
+        sessions (the session pool reports its own parked audio)."""
+        with self._stats_lock:
+            trim = sum(r.nbytes for r, _s, _e in self._prev_trims.values())
+            vad = sum(s.retained_bytes() for s in self._vad_sessions.values())
+        return {"trim_pin_retained_bytes": int(trim), "vad_session_retained_bytes": int(vad)}
+
+    def _transcribe_model(self, audio: np.ndarray, session_key: str):
+        """Through the stream's KV session when there is one: a request that
+        extends the stream's previous one reuses its KV prefix and verifies
+        its transcript; any other resets, which gives the stateless result."""
+        pool = self._streaming_sessions()
+        if pool is None:
+            return self.model.transcribe(audio)
+        # the checkout pins the bridge: another thread's new stream must not
+        # evict (reset) a session in the middle of its tick
+        with pool.checkout([session_key]) as (bridge,):
+            return bridge.transcribe_extending(audio)
+
+    def _streaming_sessions(self):
+        if _session_reuse_disabled():
+            return None
+        if self._session_pool is None:
+            with self._init_lock:  # racing first requests must share ONE pool
+                if self._session_pool is None:
+                    try:
+                        pool = SessionPool(self.model)
+                        pool.bridge_for(None)  # a model without the session's needs fails here
+                        self._session_pool = pool
+                    except Exception:
+                        self._session_pool = False
+        return self._session_pool or None
 
     # -- multi-stream coalescing ---------------------------------------
 
@@ -265,25 +398,41 @@ class Qwen3EngineServer:
                     self._scheduler = EngineScheduler()
         return self._scheduler
 
-    def _submit_decode(self, audio: np.ndarray, stream: str):
+    def _submit_decode(self, audio: np.ndarray, stream: str, session_key: str):
         scheduler = self._decode_scheduler()
         job = scheduler.submit_batchable(
             stream,
-            audio,
+            (session_key, audio),
             batch_key="transcribe",
             batch_runner=self._run_decode_batch,
             supersede=False,
             max_batch=8,
         )
-        return scheduler.wait(job)
+        result = scheduler.wait(job)
+        if isinstance(result, BaseException):
+            # one stream's failure in a batched tick fails only its request
+            raise result
+        return result
 
-    def _run_decode_batch(self, audios: List[np.ndarray]):
-        if len(audios) == 1:
-            return [self._transcribe_model(audios[0])]
+    def _run_decode_batch(self, payloads):
+        if len(payloads) == 1:
+            session_key, audio = payloads[0]
+            return [self._transcribe_model(audio, session_key)]
         with self._stats_lock:
-            self._batched_requests += len(audios)
+            self._batched_requests += len(payloads)
             self._batch_dispatches += 1
-        return self.model.transcribe_batch(audios)
+        # distinct sessions run one batched tick that keeps every stream's KV
+        # session; duplicate keys (anonymous requests share DEFAULT_STREAM)
+        # cannot share one session in a tick and take the stateless batch
+        pool = self._streaming_sessions()
+        keys = [key for key, _audio in payloads]
+        if (pool is not None and os.environ.get("LWT_BATCH_TICKS", "1") not in ("", "0")
+                and len(set(keys)) == len(keys)):
+            with self._stats_lock:
+                self._batched_tick_dispatches += 1
+            with pool.checkout(keys) as bridges:
+                return transcribe_extending_batch(bridges, [audio for _key, audio in payloads])
+        return self.model.transcribe_batch([audio for _key, audio in payloads])
 
     def _correct_hot_words(self, text: str, hot_words: Optional[List[str]]) -> str:
         if not text or not hot_words or not self._apply_hot_words:
@@ -317,7 +466,11 @@ class Qwen3EngineServer:
         options = options or {}
         # requests naming a stream share scheduler ordering; anonymous ones
         # each get their own, so concurrent ones can batch together
-        stream = str(options.get("stream") or f"req-{next(self._anon_stream)}")
+        named_stream = options.get("stream")
+        stream = str(named_stream or f"req-{next(self._anon_stream)}")
+        # KV sessions key on the named stream; anonymous requests share the
+        # default session (a single-user client never names a stream)
+        session_key = str(named_stream) if named_stream else DEFAULT_STREAM
         try:
             audio, duration, input_mode = self._load_audio(
                 audio_path, audio_base64, audio_format, sample_rate
@@ -337,7 +490,7 @@ class Qwen3EngineServer:
                     audio, duration, input_mode, hot_words, stream,
                     max_window_seconds=options.get("long_form_max_window_seconds"),
                 )
-            audio, vad_segments, vad_ms = self._filter_speech(audio)
+            audio, vad_segments, vad_ms = self._filter_speech(audio, session_key)
             speech_duration = len(audio) / float(SAMPLE_RATE)
             if not vad_segments:
                 return {
@@ -357,7 +510,7 @@ class Qwen3EngineServer:
                 }
             audio = as_device_audio(audio)
             started = time.perf_counter()
-            result = self._submit_decode(audio, stream)
+            result = self._submit_decode(audio, stream, session_key)
             inference_ms = (time.perf_counter() - started) * 1000
             with self._stats_lock:
                 self._total_inference_ms += inference_ms
@@ -466,18 +619,18 @@ class Qwen3EngineServer:
             "average_vad_ms": round(self._total_vad_ms / max(1, self._vad_calls), 3),
             "vad_calls": self._vad_calls,
             "vad_rejected": self._vad_rejected,
-            # the reference's session and interim-tick counters: always 0 on
-            # the stateless path, kept so that replies carry the same fields
-            "vad_prefix_reuse": 0,
+            "vad_prefix_reuse": self._vad_prefix_reuse,
             "batch_dispatches": self._batch_dispatches,
             "batched_requests": self._batched_requests,
-            "batched_tick_dispatches": 0,
-            "batched_tick_degrades": 0,
-            "batched_tick_last_error": None,
+            "batched_tick_dispatches": self._batched_tick_dispatches,
+            # batched ticks that raised and went per stream, and the last cause
+            "batched_tick_degrades": incremental_batch.degrade_count,
+            "batched_tick_last_error": incremental_batch.last_degrade_error,
             "initialized": self.initialized,
             "engine": self.engine,
             "backend": self.backend,
-            "speculative_decoding": False,
+            # extending requests ride the speculative session path
+            "speculative_decoding": not _session_reuse_disabled() and self._session_pool is not False,
             "models_loaded": {
                 "asr": self.model is not None,
                 "vad": self.vad is not None,
@@ -486,6 +639,8 @@ class Qwen3EngineServer:
             "init_phases": dict(self._init_timings),
         }
         stats.update(self._retained_audio_bytes())
+        if self._session_pool:
+            stats.update(self._session_pool.stats())
         if self._scheduler is not None:
             stats["scheduler"] = self._scheduler.stats()
         return stats

@@ -5,7 +5,9 @@ A fresh interpreter builds the port's server on the CPU over a tiny GGUF,
 with audio and the wire loop from the port's own modules, answers through
 ``EngineServer`` one ``transcribe``, then a pair of transcribes coalesced
 into one batch (queued behind a busy device) and a ``long_form`` request,
-and then lists what got imported. Asking for the CUDA device on a machine without a GPU raises, and
+and then lists what got imported; a second one runs one interim tick pair of
+``IncrementalTranscriber`` and two pooled wire requests with session reuse
+on. Asking for the CUDA device on a machine without a GPU raises, and
 ``engine_cli serve`` without ``--device cpu`` fails loudly instead of
 serving on the CPU."""
 
@@ -84,10 +86,46 @@ print(json.dumps({"replies": replies, "more": more, "cuda_error": cuda_error,
 """
 
 
-def _env():
+SESSION_SCRIPT = r"""
+import base64, io, json, sys
+import numpy as np
+from light_whisper_tpu_torch.eval.speechlike import speechlike
+from light_whisper_tpu_torch.runtime.server import EngineServer
+from light_whisper_tpu_torch.runtime.qwen3_server import Qwen3EngineServer
+from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
+from light_whisper_tpu_torch.serving.incremental import IncrementalTranscriber
+
+path = sys.argv[1]
+model = Qwen3ASRModel(path, device="cpu", max_new_tokens=4)
+audio = speechlike(3.0, seed=1)
+inc = IncrementalTranscriber(model, max_new_tokens=4)
+tick = inc.transcribe_window(audio[:32000]).tokens, inc.transcribe_window(audio).tokens
+
+def transcribe(rid, clip):
+    pcm = np.round(clip * 32767).astype("<i2")
+    return json.dumps({"action": "transcribe", "request_id": rid, "audio_base64": base64.b64encode(pcm.tobytes()).decode(),
+                       "audio_format": "pcm_s16le", "sample_rate": 16000, "options": {"stream": "s"}}) + "\n"
+
+out = io.StringIO()
+server = Qwen3EngineServer(model_path=path, device="cpu", model_factory=lambda p: model)
+EngineServer(server.hooks(), stdin=io.StringIO(transcribe(1, audio[:32000]) + transcribe(2, audio)
+                                               + json.dumps({"action": "stats"}) + "\n"), stdout=out,
+             max_concurrency=1).run()  # one at a time: the second request extends the first
+print(json.dumps({"tick": tick, "counters": [inc.full_prefills, inc.incremental_prefills],
+                  "replies": [json.loads(l) for l in out.getvalue().splitlines()],
+                  "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")),
+                  "reference": sorted(m for m in sys.modules
+                                      if m.split(".")[0] in ("light_whisper_tpu", "__graft_entry__", "helpers"))}))
+"""
+
+
+def _env(session_reuse=False):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")])
-    env["LIGHT_WHISPER_DISABLE_SESSION_REUSE"] = "1"
+    if session_reuse:
+        env.pop("LIGHT_WHISPER_DISABLE_SESSION_REUSE", None)
+    else:
+        env["LIGHT_WHISPER_DISABLE_SESSION_REUSE"] = "1"
     return env
 
 
@@ -115,6 +153,22 @@ def test_port_serves_without_importing_jax(tiny_gguf):
     assert result["reference"] == []
     if not torch.cuda.is_available():
         assert "CUDA" in result["cuda_error"]
+
+
+def test_interim_tick_and_pooled_request_without_importing_jax(tiny_gguf):
+    """One tick pair of ``IncrementalTranscriber`` and two pooled wire requests
+    on a named stream (session reuse on), then the module list."""
+    proc = subprocess.run([sys.executable, "-c", SESSION_SCRIPT, tiny_gguf], capture_output=True, text=True,
+                          env=_env(session_reuse=True), cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["counters"] == [1, 1] and all(len(t) >= 1 for t in result["tick"])
+    init, first, second, stats = result["replies"]
+    assert init["success"] and first["success"] and second["success"]
+    assert stats["stats"]["session_hits"] == 1 and stats["stats"]["speculative_decoding"] is True
+    assert stats["stats"]["vad_prefix_reuse"] >= 1
+    assert result["modules"] == []
+    assert result["reference"] == []
 
 
 def test_engine_cli_without_a_gpu_fails_loudly(tiny_gguf):

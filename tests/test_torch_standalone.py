@@ -51,6 +51,17 @@ def test_no_import_of_the_reference(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+SESSION_MODULES = ("serving/incremental.py", "serving/incremental_batch.py", "serving/session_bridge.py",
+                   "serving/session_pool.py", "models/vad/api.py", "runtime/qwen3_server.py")
+
+
+@pytest.mark.parametrize("module", SESSION_MODULES)
+def test_the_scan_covers_the_session_modules(module):
+    path = REPO / "light_whisper_tpu_torch" / module
+    assert path in _port_sources()
+    assert {name.split(".")[0] for name, _line in _imports(path)} & set(FORBIDDEN) == set()
+
+
 def test_the_scan_sees_every_import_form(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import light_whisper_tpu.audio\nfrom light_whisper_tpu import x\n"
