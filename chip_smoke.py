@@ -63,7 +63,20 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
      device coalesce into batched ticks (fresh, then extending; no degrade), whose replies
      must equal the same ticks one at a time. Then, on the model, ticks held
      against stateless ``transcribe`` under ``narrow_verdict``'s rule;
-6. ``engine_cli serve`` in a subprocess: init, one transcribe, exit.
+6. precise: the same artifact served with ``LIGHT_WHISPER_PRECISE=1`` (dense
+   f32 weights, f32 compute and KV cache) through the wire loop, the 2 s and
+   12 s requests of ``slice``: no kernel launched, every KV cache f32, the
+   card's f32 matmul held against float64 (TF32 would show); then the narrow
+   model in precise mode on the card and on the CPU;
+7. train: one fine-tuning step of the narrow model in f32 on the card and on
+   the CPU (loss and every gradient compared), then five steps at the 0.6B
+   widths (bf16 matrices, B = 4 clips of 10 s, 48 labels each) through a
+   dp1 x tp1 mesh on NCCL (the loss must fall, no kernel launched) and a
+   checkpoint of that state saved and restored bitwise;
+8. ``engine_cli serve`` in a subprocess, twice: from a copy of the package
+   with an empty kernel build directory (cold: one transcribe) and from the
+   checkout (warm: two, the first's ``inference_ms`` beside the second's),
+   each timed from spawn to its init reply.
 
 Then the ``nvidia-smi`` line, a JSON line with one entry per kernel and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -799,12 +812,10 @@ def narrow_verdict(ref_tokens, got_tokens, flips, band: float = TIE_BAND):
     return None
 
 
-def phase_narrow(torch):
-    from light_whisper_tpu_torch.eval.speechlike import speechlike
-    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+def narrow_model():
+    """(config, GGUF path) of the narrow model: head dim 128, two query heads
+    a KV head, random Q8_0 weights from ``SEED`` (written once)."""
     from light_whisper_tpu_torch.models.qwen3_asr.config import AudioEncoderConfig, DecoderConfig, Qwen3ASRConfig
-    from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
-    from light_whisper_tpu_torch.ops import flash_prefill as fp
 
     vocab = 1024
     cfg = Qwen3ASRConfig(
@@ -820,29 +831,49 @@ def phase_narrow(torch):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     if not os.path.isfile(path):
         write_model(path, cfg, SEED)
+    return cfg, path
+
+
+def card_vs_cpu(torch, path: str, label: str, precise: bool = False, tol: float = 2e-2, steps: int = 12):
+    """The model at ``path`` transcribes on the card and on the CPU: logits
+    teacher-forced on the CPU's tokens compared step by step, and the card's
+    greedy tokens held to ``narrow_verdict``. Returns (card model, CPU model)."""
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
+
     audio = speechlike(2.0, seed=SEED)
-    steps = 12
-    gpu = Qwen3ASRModel(path, device="cuda", max_new_tokens=steps)
-    cpu = Qwen3ASRModel(path, device="cpu", max_new_tokens=steps)
+    gpu = Qwen3ASRModel(path, device="cuda", max_new_tokens=steps, precise=precise)
+    cpu = Qwen3ASRModel(path, device="cpu", max_new_tokens=steps, precise=precise)
+    vocab = cpu.config.decoder.vocab_size
     ref_tokens = cpu.transcribe(audio).tokens
     ref_logits = cpu.teacher_forced_logits(audio, ref_tokens)
     got_logits = gpu.teacher_forced_logits(audio, ref_tokens)
     worst = 0.0
     flips = []
     for step, (r, g) in enumerate(zip(ref_logits, got_logits)):
-        require(bool(torch.isfinite(g).all()), f"non-finite logits at step {step}")
-        r, g = r[: cfg.decoder.vocab_size], g[: cfg.decoder.vocab_size]
+        require(bool(torch.isfinite(g).all()), f"{label}: non-finite logits at step {step}")
+        r, g = r[:vocab], g[:vocab]
         worst = max(worst, float((r - g).abs().max()) / max(1.0, float(r.abs().max())))
         if int(torch.argmax(r)) != int(torch.argmax(g)):
             top2 = torch.topk(r, 2).values
             flips.append((step, float(top2[0] - top2[1])))
-    say(f"  narrow: greedy tokens {ref_tokens}; max|dlogit|/max|logit| = {worst:.3g}; {len(flips)} argmax flips")
+    say(f"  {label}: greedy tokens {ref_tokens}; max|dlogit|/max|logit| = {worst:.3g}; {len(flips)} argmax flips")
     for step, gap in flips:
-        say(f"  narrow: argmax flip at step {step}, CPU top-2 gap {gap:.3g} (tie band {TIE_BAND:g})")
-    require(worst <= 2e-2, f"narrow logits differ by {worst:.3g} (tol 2e-2 of max|logit|)")
+        say(f"  {label}: argmax flip at step {step}, CPU top-2 gap {gap:.3g} (tie band {TIE_BAND:g})")
+    require(worst <= tol, f"{label} logits differ by {worst:.3g} (tol {tol:g} of max|logit|)")
     got_tokens = gpu.transcribe(audio).tokens
     verdict = narrow_verdict(ref_tokens, got_tokens, flips)
-    require(verdict is None, f"narrow: {verdict}")
+    require(verdict is None, f"{label}: {verdict}")
+    return gpu, cpu
+
+
+def phase_narrow(torch):
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+    from light_whisper_tpu_torch.ops import flash_prefill as fp
+
+    cfg, path = narrow_model()
+    gpu, cpu = card_vs_cpu(torch, path, "narrow")
 
     # one prefill of more than 64 rows at capacity 8192: the flash-prefill
     # kernel on the card, attention_chunked on the CPU
@@ -1419,11 +1450,284 @@ def phase_interim(torch, engine, client, launches: Launches):
         f"{ {k: got[k] for k in ('q8_matmul', 'q8_matmul_stacked', 'q8_matmul_stacked_fused', 'decode_attention', 'decode_attention_batched')} })")
 
 
+# ---------------------------------------------------------------------------
+# phase precise: LIGHT_WHISPER_PRECISE=1 through the wire loop
+
+
+def f32_matmul_error(torch) -> float:
+    """A 1024 x 1024 x 1024 f32 matmul on the card against float64 on the host:
+    max|err| / max|product|, about 1e-6 in f32 and about 1e-3 with TF32's
+    10-bit mantissa. Fails above 1e-5, or when the flags allow TF32."""
+    require(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+            f"TF32 allowed for f32 matmuls ({torch.get_float32_matmul_precision()})")
+    gen = torch.Generator().manual_seed(SEED)
+    a, b = (torch.randn(1024, 1024, generator=gen, dtype=torch.float64) for _ in range(2))
+    want = a.float().double() @ b.float().double()
+    got = (a.float().cuda() @ b.float().cuda()).double().cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    require(err <= 1e-5, f"f32 matmul on the card is {err:.3g} off float64: not full f32")
+    return err
+
+
+def phase_precise(torch, model_path: str, launches: Launches):
+    """The 0.6B artifact served with ``LIGHT_WHISPER_PRECISE=1`` (dense f32
+    weights, f32 compute, f32 KV cache; sessions on, as served): the 2 s and
+    12 s requests of ``slice``, no kernel launched, every KV cache f32. Then
+    the narrow model in precise mode on the card and on the CPU."""
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+    from light_whisper_tpu_torch.runtime.qwen3_server import Qwen3EngineServer
+
+    err = f32_matmul_error(torch)
+    say(f"  f32 matmul on the card: max|err|/max|product| {err:.3g} against float64 (TF32 would give ~1e-3)")
+    cache_dtypes = []
+    real_init_cache = dec.init_cache
+
+    def init_cache(*args, **kwargs):
+        cache = real_init_cache(*args, **kwargs)
+        cache_dtypes.append(cache.k.dtype)
+        return cache
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    os.environ["LIGHT_WHISPER_PRECISE"] = "1"
+    dec.init_cache = init_cache
+    launches.start()
+    t0 = time.perf_counter()
+    try:
+        engine = Qwen3EngineServer(engine="qwen3-asr-0.6b", device="cuda", model_path=model_path)
+        client = PipeClient(engine.hooks())
+        try:
+            init = client.read()
+            require(init.get("success") is True, f"precise init failed: {init}")
+            model = engine.model
+            require(model.cache_dtype == torch.float32 and model.config.decoder.compute_dtype == "float32",
+                    f"precise model: cache {model.cache_dtype}, compute {model.config.decoder.compute_dtype}")
+            say(f"  precise init in {time.perf_counter() - t0:.1f} s: phases={engine._init_timings}")
+            for rid, (name, audio) in enumerate((("speech 2 s", speechlike(2.0, seed=SEED)),
+                                                 ("speech 12 s", speechlike(12.0, seed=SEED + 1))), start=1):
+                reply = client.call(_transcribe_cmd(rid, audio))
+                require(reply.get("success") is True and reply.get("vad_segments", 0) >= 1, f"precise {name}: {reply}")
+                steps = model.last_decode_step_s
+                say(f"  precise {name}: inference_ms={reply['inference_ms']} vad_ms={reply['vad_ms']} "
+                    f"decode_steps={len(steps)} median_step_ms={_median_ms(steps):.3f} text_chars={len(reply['text'])}")
+            bye = client.call({"action": "exit", "request_id": 9})
+            require(bye.get("success") is True, f"precise exit: {bye}")
+        finally:
+            client.close()
+    finally:
+        dec.init_cache = real_init_cache
+        os.environ.pop("LIGHT_WHISPER_PRECISE", None)
+    got = launches.read("precise", [])
+    require(not any(got.values()), f"precise mode launched kernels: { {k: v for k, v in got.items() if v} }")
+    require(cache_dtypes and set(cache_dtypes) == {torch.float32}, f"precise KV caches {cache_dtypes}")
+    peak = torch.cuda.max_memory_allocated() - base
+    del engine, model
+    torch.cuda.empty_cache()
+    _cfg, path = narrow_model()
+    card_vs_cpu(torch, path, "narrow precise", precise=True, tol=1e-4)
+    say(f"phase precise: ok (f32 weights, compute and KV cache: {len(cache_dtypes)} caches; no kernel launched; "
+        f"peak memory {peak / 2**30:.3f} GiB over the {base / 2**30:.3f} GiB held before; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase train: the fine-tuning step on the card
+
+
+def training_params(tree, owner: str = ""):
+    """A dense f32 tree as training holds it: bf16 linear and embedding
+    matrices (``w`` of two or three dimensions outside a norm), f32 norms,
+    biases, convolutions and positions (the dtypes of
+    ``__graft_entry__._random_params``)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = training_params(value, key)
+        elif key == "w" and value.dim() in (2, 3) and not (owner.endswith("norm") or owner == "ln_post"):
+            out[key] = value.bfloat16()
+        else:
+            out[key] = value
+    return out
+
+
+def train_batch(torch, cfg, prefix_ids, suffix_ids, batch: int, seconds: float, labels: int, seed: int):
+    """``batch`` speech-like clips as whole chunks of log-mel, prompts with the
+    audio placeholders, and ``labels`` random transcript tokens to predict."""
+    import numpy as np
+
+    from light_whisper_tpu_torch.audio.mel import log_mel
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.parallel.train import IGNORE_LABEL
+
+    clips = np.stack([speechlike(seconds, seed=seed + i) for i in range(batch)])
+    mel = log_mel(torch.from_numpy(clips))
+    chunks = mel.shape[1] // cfg.audio.chunk_frames
+    mel = mel[:, : chunks * cfg.audio.chunk_frames]
+    prompt = list(prefix_ids) + [cfg.audio_token_id] * (chunks * cfg.audio.tokens_per_chunk) + list(suffix_ids)
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((batch, len(prompt) + labels), np.int64)
+    ids[:, : len(prompt)] = prompt
+    ids[:, len(prompt):] = rng.integers(0, min(cfg.decoder.vocab_size, cfg.audio_token_id) - 8, (batch, labels))
+    targets = np.full_like(ids, IGNORE_LABEL)
+    targets[:, len(prompt) - 1 : -1] = ids[:, len(prompt):]
+    return mel, torch.from_numpy(ids), torch.from_numpy(targets)
+
+
+def _dense_trees(path: str):
+    """(config, prefix ids, suffix ids, encoder tree, decoder tree) of the
+    GGUF at ``path`` loaded as the precise loader does (dense f32, host)."""
+    from light_whisper_tpu_torch.models.qwen3_asr.loader import Qwen3ASRWeights
+    from light_whisper_tpu_torch.models.qwen3_asr.prompt import resolve_prompt_ids
+
+    w = Qwen3ASRWeights(path, device="cpu", precise=True)
+    prefix, suffix = resolve_prompt_ids(w.metadata.get("tokenizer.chat_template"), w.tokenizer,
+                                        w.config.audio_token_id)
+    return w.config, prefix, suffix, w.encoder_params, w.decoder_params
+
+
+def phase_train(torch, model_path: str, launches: Launches, steps: int = 5, profile_dir=None):
+    """(a) one train step of the narrow model in f32 on the card and on the
+    CPU from the same parameters and batch; (b) ``steps`` steps at the 0.6B
+    widths (bf16 matrices) through a dp1 x tp1 mesh on NCCL (with
+    ``profile_dir``, two more, the second under torch.profiler), and a
+    checkpoint of that state saved and restored bitwise."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from light_whisper_tpu_torch.models.qwen3_asr.params import numpy_from_params
+    from light_whisper_tpu_torch.parallel import checkpoint, mesh as pmesh, train
+
+    t_phase = time.perf_counter()
+    launches.start()
+    # (a) f32, so that TF32 anywhere in the forward or the backward (about
+    # 5e-4 relative) stands far above f32's rounding (about 1e-6)
+    _cfg, path = narrow_model()
+    cfg, prefix, suffix, enc, dec_p = _dense_trees(path)
+    cfg = cfg.with_compute_dtype("float32")
+    batch = train_batch(torch, cfg, prefix, suffix, batch=2, seconds=2.0, labels=8, seed=SEED + 100)
+    result = {}
+    for where in ("cpu", "cuda"):
+        state = train.init_state(None, enc, dec_p, train.adam(1e-3), cfg, device=where)
+        step, place = train.make_train_step(cfg, None, len(prefix), device=where)
+        state, loss = step(state, *place(*batch))
+        result[where] = (float(loss), train.tree_leaves(numpy_from_params(
+            train.tree_map(state.params, lambda p: p.grad))))
+    (loss_cpu, g_cpu), (loss_card, g_card) = result["cpu"], result["cuda"]
+    rel_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
+
+    def l2(a):
+        return float((a.astype("float64") ** 2).sum()) ** 0.5
+
+    # a leaf's gradient under 1e-3 of the whole gradient's norm is held to
+    # that norm: the encoder's k bias has a zero gradient in exact arithmetic
+    floor = 1e-3 * sum(l2(g) ** 2 for g in g_cpu) ** 0.5
+    worst = max((l2(a.astype("float64") - b) / max(l2(b), floor), i, b.shape)
+                for i, (a, b) in enumerate(zip(g_card, g_cpu)))
+    say(f"  train narrow f32: loss card {loss_card:.7f} CPU {loss_cpu:.7f} (rel {rel_loss:.3g}, tol 1e-5); "
+        f"worst gradient rel L2 {worst[0]:.3g} at leaf {worst[1]} {tuple(worst[2])} of {len(g_cpu)} (tol 1e-4)")
+    require(rel_loss <= 1e-5, f"narrow train loss card vs CPU {rel_loss:.3g}")
+    require(worst[0] <= 1e-4, f"narrow train gradient card vs CPU {worst[0]:.3g} at leaf {worst[1]}")
+
+    # (b) the 0.6B widths
+    cfg, prefix, suffix, enc, dec_p = _dense_trees(model_path)
+    enc, dec_p = training_params(enc), training_params(dec_p)
+    B, seconds, n_labels = 4, 10.0, 48
+    mel, ids, labels = train_batch(torch, cfg, prefix, suffix, batch=B, seconds=seconds, labels=n_labels,
+                                   seed=SEED + 200)
+    store_dir = tempfile.mkdtemp(prefix="lwt-train-store-", dir=os.path.join(REPO, "build"))
+    pmesh.init_distributed("cuda", 0, 1, store=dist.FileStore(os.path.join(store_dir, "store"), 1), timeout_s=120)
+    ckpt = os.path.join(REPO, "build", "chip_smoke", "train-ckpt")
+    try:
+        mesh = pmesh.make_mesh(1, 1, device_type="cuda")
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = train.init_state(mesh, enc, dec_p, train.adam(1e-3), cfg)
+        step, place = train.make_train_step(cfg, mesh, len(prefix))
+        placed = place(mel, ids, labels)
+        losses, walls = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, *placed)
+            losses.append(float(loss))  # synchronises
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        rows = B * ids.shape[1]
+        ms = sorted(walls[1:])[len(walls[1:]) // 2] * 1000
+        say(f"  train 0.6B: B={B} x {mel.shape[1]} mel frames ({ids.shape[1]} rows, {n_labels} labels each); "
+            f"losses {[round(v, 4) for v in losses]}; step ms {[round(w * 1000, 3) for w in walls]} "
+            f"(median after the first {ms:.3f}); {rows * 1000 / ms:.1f} tokens/s ({B * n_labels * 1000 / ms:.1f} "
+            f"label tokens/s); peak memory {peak / 2**30:.3f} GiB over the {base / 2**30:.3f} GiB held before")
+        require(all(v == v and abs(v) != float("inf") for v in losses), f"non-finite loss: {losses}")
+        require(losses[-1] < losses[0], f"loss did not fall over {steps} steps: {losses}")
+        got = launches.read("train", [])
+        require(not any(got.values()), f"the train step launched kernels: { {k: v for k, v in got.items() if v} }")
+        if profile_dir:
+            profile_run(torch, "train", f"0.6B train step, B={B} x {seconds:g} s, {n_labels} labels each",
+                        lambda: step(state, *placed), profile_dir)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_train_state(ckpt, state)
+        save_s = time.perf_counter() - t0
+        template = train.init_state(mesh, enc, dec_p, train.adam(1e-3), cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = checkpoint.restore_train_state(ckpt, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        require(checkpoint.tree_equal(restored, state), "the restored 0.6B train state differs from the saved one")
+        say(f"  checkpoint of the 0.6B state ({size / 2**30:.3f} GiB): save {save_s:.3f} s, restore {restore_s:.3f} s, "
+            f"bitwise equal after step {restored.step}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del state, template, restored
+    torch.cuda.empty_cache()
+    say(f"phase train: ok (narrow f32 card = CPU; 0.6B {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{ms:.3f} ms/step; no kernel launched; {time.perf_counter() - t_phase:.1f} s)")
+
+
+def profile_run(torch, tag: str, label: str, run, out_dir: str) -> None:
+    """``run()`` once to warm, then once under torch.profiler: device time and
+    launches by kernel (the table under ``out_dir``) and the device's busy
+    share of the wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    os.makedirs(out_dir, exist_ok=True)
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    events = prof.key_averages()
+    kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1000
+    n_kernels = sum(e.count for e in kernels)
+    path = os.path.join(out_dir, f"profile_{tag}.txt")
+    with open(path, "w") as f:
+        f.write(f"{card_line()}\n{label}: wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms in "
+                f"{n_kernels} launches\n{events.table(sort_by='self_device_time_total', row_limit=30)}\n")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"  profile {tag}: {e.key[:70]} {e.self_device_time_total / 1000:.3f} ms x{e.count}")
+    busy = device_ms / wall_ms if wall_ms else float("nan")
+    say(f"  profile {tag} ({label}): wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms in "
+        f"{n_kernels} launches, busy share {busy:.3f} -> {os.path.relpath(path, REPO)}")
+
+
 def phase_profile(torch, model, out_dir: str, steps: int = 32):
     """torch.profiler over a 12 s transcribe (with and without
     ``LWT_FUSED_FFN``) and a B = 8 ``transcribe_batch`` of 3 s clips, each
-    cut to ``steps`` decode steps: device time and launches by kernel, and the
-    device's busy share of the wall."""
+    cut to ``steps`` decode steps (:func:`profile_run`)."""
     from light_whisper_tpu_torch.eval.speechlike import speechlike
 
     def fused_route():
@@ -1437,66 +1741,81 @@ def phase_profile(torch, model, out_dir: str, steps: int = 32):
                  ("12s-fused", "12 s transcribe, LWT_FUSED_FFN=1", fused_route),
                  ("batch8", "B=8 transcribe_batch of 3 s clips",
                   lambda: model.transcribe_batch([speechlike(3.0, seed=SEED + 60 + i) for i in range(8)])))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     keep = model.max_new_tokens
     model.max_new_tokens = steps
-    os.makedirs(out_dir, exist_ok=True)
     try:
         for tag, label, run in workloads:
-            run()  # warm
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1000
-            events = prof.key_averages()
-            kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-            device_ms = sum(e.self_device_time_total for e in kernels) / 1000
-            n_kernels = sum(e.count for e in kernels)
-            path = os.path.join(out_dir, f"profile_{tag}.txt")
-            with open(path, "w") as f:
-                f.write(f"{card_line()}\n{label}, {steps} decode steps: wall {wall_ms:.3f} ms, "
-                        f"device kernels {device_ms:.3f} ms in {n_kernels} launches\n"
-                        f"{events.table(sort_by='self_device_time_total', row_limit=30)}\n")
-            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-                say(f"  profile {tag}: {e.key[:70]} {e.self_device_time_total / 1000:.3f} ms x{e.count}")
-            busy = device_ms / wall_ms if wall_ms else float("nan")
-            say(f"  profile {tag} ({label}): wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms in "
-                f"{n_kernels} launches, busy share {busy:.3f} -> {os.path.relpath(path, REPO)}")
+            profile_run(torch, tag, f"{label}, {steps} decode steps", run, out_dir)
     finally:
         model.max_new_tokens = keep
     say("phase profile: ok")
 
 
-def phase_cli(model_path: str):
+def _serve_cli(model_path: str, root: str, label: str, requests: int) -> dict:
+    """``engine_cli serve`` in a fresh process whose package is imported from
+    ``root``: the wall from spawn to its ``init`` reply, then ``requests``
+    2 s transcribes and ``exit``."""
+    import tempfile
+
     from light_whisper_tpu_torch.eval.speechlike import speechlike
 
     env = dict(os.environ, LIGHT_WHISPER_MODEL_PATH=model_path,
                LIGHT_WHISPER_DATA_DIR=os.path.join(REPO, "build", "chip_smoke", "data"),
-               PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
-    cmd = [sys.executable, "-m", "light_whisper_tpu_torch.runtime.engine_cli", "serve",
-           "--engine", "qwen3-asr-0.6b"]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env, cwd=REPO)
-    try:
-        lines = [json.dumps(_transcribe_cmd(1, speechlike(2.0, seed=SEED))),
-                 json.dumps({"action": "exit", "request_id": 2})]
-        out, err = proc.communicate("\n".join(lines) + "\n", timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    replies = [json.loads(l) for l in out.splitlines() if l.strip()]
-    require(proc.returncode == 0, f"engine_cli exited {proc.returncode}: {err[-2000:]}")
-    require(len(replies) == 3, f"engine_cli replies {replies} stderr {err[-2000:]}")
-    init, tr, bye = replies
-    require(init.get("success") and init.get("backend") == "cuda", f"engine_cli init {init}")
-    require(tr.get("success") and tr.get("vad_segments", 0) >= 1, f"engine_cli transcribe {tr}")
-    require(bye.get("success"), f"engine_cli exit {bye}")
-    say(f"phase cli: ok engine_cli serve: init + transcribe (inference_ms={tr['inference_ms']}) + exit "
-        f"in {time.perf_counter() - t0:.1f} s")
+               PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "light_whisper_tpu_torch.runtime.engine_cli", "serve", "--engine", "qwen3-asr-0.6b"]
+    with tempfile.TemporaryFile("w+") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                                cwd=root)
+        killer = threading.Timer(600, proc.kill)  # a hung engine fails the phase, not the run
+        killer.start()
+        try:
+            init = json.loads(proc.stdout.readline() or "{}")
+            init_s = time.perf_counter() - t0
+            replies = []
+            for rid, seed in ((1, SEED), (2, SEED + 3))[:requests]:
+                proc.stdin.write(json.dumps(_transcribe_cmd(rid, speechlike(2.0, seed=seed))) + "\n")
+                proc.stdin.flush()
+                replies.append(json.loads(proc.stdout.readline() or "{}"))
+            proc.stdin.write(json.dumps({"action": "exit", "request_id": 3}) + "\n")
+            proc.stdin.close()
+            bye = json.loads(proc.stdout.readline() or "{}")
+            proc.wait(timeout=120)
+        finally:
+            killer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        stderr = err.read()
+    require(proc.returncode == 0, f"{label} engine_cli exited {proc.returncode}: {stderr[-2000:]}")
+    require(init.get("success") and init.get("backend") == "cuda", f"{label} engine_cli init {init} {stderr[-2000:]}")
+    for tr in replies:
+        require(tr.get("success") and tr.get("vad_segments", 0) >= 1, f"{label} engine_cli transcribe {tr}")
+    require(bye.get("success"), f"{label} engine_cli exit {bye}")
+    inference_ms = [tr["inference_ms"] for tr in replies]
+    say(f"  {label}: spawn to init reply {init_s:.3f} s ({init.get('message')}); inference_ms {inference_ms}; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    return {"init_s": init_s, "inference_ms": inference_ms}
+
+
+def phase_cli(model_path: str):
+    """Warm start: a fresh ``engine_cli serve`` from a copy of the package
+    whose kernel build directory is empty (``_build`` builds under the
+    package's parent, so the copy builds its own: cold), then from the
+    checkout, whose kernels this run built (warm)."""
+    import shutil
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="lwt-cold-", dir=os.path.join(REPO, "build")) as root:
+        shutil.copytree(os.path.join(REPO, "light_whisper_tpu_torch"), os.path.join(root, "light_whisper_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        require(not os.path.exists(os.path.join(root, "build")), "the cold copy has a build directory")
+        cold = _serve_cli(model_path, root, "cold (empty kernel build)", requests=1)
+        require(os.path.isdir(os.path.join(root, "build", "lwt_torch_kernels")), "the cold copy built no kernels")
+    warm = _serve_cli(model_path, REPO, "warm (kernels built)", requests=2)
+    say(f"phase cli: ok engine_cli serve init-to-ready cold {cold['init_s']:.3f} s, warm {warm['init_s']:.3f} s "
+        f"(shell budget 120 s); inference_ms cold {cold['inference_ms']}, warm first/second {warm['inference_ms']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1542,8 +1861,8 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="identify, build and check the kernels; skip the model phases")
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile a short 12 s transcribe (with and without LWT_FUSED_FFN) and a "
-                             "B=8 batch; tables under DIR")
+                        help="also profile a short 12 s transcribe (with and without LWT_FUSED_FFN), a "
+                             "B=8 batch and a 0.6B train step; tables under DIR")
     args = parser.parse_args(argv)
 
     try:
@@ -1598,7 +1917,10 @@ def main(argv=None) -> int:
                 require(bye.get("success") is True, f"exit: {bye}")
             finally:
                 client.close()
-            del engine
+            del engine, client  # the client's server holds the engine's hooks
+            torch.cuda.empty_cache()
+            phase_precise(torch, model_path, launches)
+            phase_train(torch, model_path, launches, profile_dir=args.profile)
             phase_cli(model_path)
         torch.cuda.synchronize()
         require(not _no_reference_modules(), f"imported: {_no_reference_modules()}")

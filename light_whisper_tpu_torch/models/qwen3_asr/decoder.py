@@ -418,6 +418,84 @@ def forward_prefill_batch(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor
     return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
 
 
+class Replicated:
+    """The tensor-parallel seams of a layer when every weight is whole: both
+    are the identity. ``parallel.sharding.TensorParallel`` is the sharded
+    counterpart, where ``enter`` opens a column-parallel block and ``reduce``
+    sums a row-parallel block's partial outputs over the ranks."""
+
+    @staticmethod
+    def enter(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def layer_views(layers: Dict) -> List[Dict]:
+    """A tree of stacked ``[L, ...]`` leaves as L per-layer trees of views,
+    one ``unbind`` a leaf: its backward stacks the L gradients once, where
+    indexing layer ``i`` out would zero-fill and accumulate a whole
+    ``[L, ...]`` gradient for every layer."""
+    per_leaf = {k: layer_views(v) if isinstance(v, dict) else v.unbind(0) for k, v in layers.items()}
+    count = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(count)]
+
+
+def make_train_layer(cfg: DecoderConfig, T: int, device, tp=Replicated):
+    """Layer body of the cache-free causal forward (the reference's
+    ``make_train_layer``): ``layer_fn(x [..., T, D], layer) -> x`` for one
+    layer's tree (:func:`layer_views`).
+
+    The reference's rounding points are kept: every linear's f32 result is
+    cast to the residual dtype, attention operands are in ``cfg``'s compute
+    dtype with f32 logits and softmax, and the causal mask writes ``NEG_INF``.
+    Under tensor parallelism ``cfg`` holds this rank's head and FFN counts and
+    ``tp`` its seams (the o and down outputs are summed in f32, before the
+    cast)."""
+    positions = torch.arange(T, device=device)
+    cos, sin = rope_tables(positions, cfg.key_length, cfg.rope_freq_base)
+    hd = cfg.key_length
+    groups = cfg.head_count // cfg.head_count_kv
+    causal = positions[None, :] <= positions[:, None]  # [T, T]
+    dtype = torch_dtype(cfg.compute_dtype)
+    eps = cfg.rms_epsilon
+
+    def layer_fn(x: torch.Tensor, layer: Dict) -> torch.Tensor:
+        lead = x.shape[:-2]
+        h = tp.enter(rms_norm(x, layer["attn_norm"], eps))
+        rows = dense_matmul(h, layer["qkv"]["w"]).flatten(0, -2)
+        q, k, v = (t.reshape(*lead, T, *t.shape[1:]) for t in _split_qkv(cfg, rows, rows.shape[0]))
+        q = apply_rope(rms_norm(q, layer["q_norm"], eps), cos, sin)
+        k = apply_rope(rms_norm(k, layer["k_norm"], eps), cos, sin)
+        qg = q.reshape(*lead, T, cfg.head_count_kv, groups, hd)
+        logits = torch.einsum("...qkgd,...ckd->...kgqc", qg.to(dtype).float(), k.to(dtype).float()) * (hd ** -0.5)
+        weights = torch.softmax(logits.masked_fill(~causal, NEG_INF), dim=-1)
+        attn = torch.einsum("...kgqc,...ckd->...qkgd", weights.to(dtype).float(), v.to(dtype).float())
+        attn = attn.reshape(*lead, T, cfg.head_count * hd).to(x.dtype)
+        x = x + tp.reduce(dense_matmul(attn, layer["o"]["w"])).to(x.dtype)
+        h = tp.enter(rms_norm(x, layer["ffn_norm"], eps))
+        gate, up = torch.chunk(dense_matmul(h, layer["gateup"]["w"]), 2, dim=-1)
+        inner = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+        return x + tp.reduce(dense_matmul(inner, layer["down"]["w"])).to(x.dtype)
+
+    return layer_fn
+
+
+def forward_train(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, tp=Replicated) -> torch.Tensor:
+    """Cache-free causal forward over whole sequences (training and scoring):
+    ``embeds [T, D]`` or ``[B, T, D]`` → hidden states of the same shape.
+    Differentiable: the gradients land in the stacked ``[L, ...]`` leaves
+    (each layer's weights are views of them). Dense weights only, as
+    training takes."""
+    layer_fn = make_train_layer(cfg, embeds.shape[-2], embeds.device, tp)
+    x = embeds
+    for layer in layer_views(params["layers"]):
+        x = layer_fn(x, layer)
+    return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
+
+
 def logits_for(cfg: DecoderConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
     head = params.get("lm_head")
     embed = params["embed"]

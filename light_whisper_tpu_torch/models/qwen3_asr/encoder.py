@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from light_whisper_tpu_torch.models.qwen3_asr.config import AudioEncoderConfig, conv_output_length
-from light_whisper_tpu_torch.models.qwen3_asr.decoder import torch_dtype
+from light_whisper_tpu_torch.models.qwen3_asr.decoder import Replicated, layer_views, torch_dtype
 from light_whisper_tpu_torch.ops.decode_attention import NEG_INF
 from light_whisper_tpu_torch.ops.linear import apply_linear
 
@@ -51,35 +51,36 @@ def _layer_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float) -> torc
     return (normed * p["w"].float() + p["b"].float()).to(x.dtype)
 
 
-def _windowed_attention(cfg: AudioEncoderConfig, layer: Dict, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    G, W, D = x.shape
-    H = cfg.head_count
-    hd = D // H
+def _row_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel linear (o, fc2): the partial products are summed over
+    the tensor-parallel ranks before the bias, which is added once."""
+    out = tp.reduce(apply_linear({k: v for k, v in p.items() if k != "b"}, x))
+    return out + p["b"].float() if "b" in p else out
+
+
+def _windowed_attention(cfg: AudioEncoderConfig, layer: Dict, x: torch.Tensor, mask: torch.Tensor,
+                        tp=Replicated) -> torch.Tensor:
+    G, W, _ = x.shape
+    H = cfg.head_count  # this rank's heads under tensor parallelism
     dtype = torch_dtype(cfg.compute_dtype)
-    q = apply_linear(layer["q"], x).reshape(G, W, H, hd)
-    k = apply_linear(layer["k"], x).reshape(G, W, H, hd)
-    v = apply_linear(layer["v"], x).reshape(G, W, H, hd)
+    x = tp.enter(x)
+    q, k, v = (apply_linear(layer[n], x).reshape(G, W, H, -1) for n in ("q", "k", "v"))
+    hd = q.shape[-1]
     logits = torch.einsum("gqhd,gkhd->ghqk", q.to(dtype).float(), k.to(dtype).float()) * (hd ** -0.5)
     logits = torch.where(mask[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("ghqk,gkhd->gqhd", weights.to(dtype).float(), v.to(dtype).float()).to(x.dtype)
-    return apply_linear(layer["o"], out.reshape(G, W, D)).to(x.dtype)
+    return _row_linear(layer["o"], out.reshape(G, W, H * hd), tp).to(x.dtype)
 
 
-def _encoder_layer(cfg: AudioEncoderConfig, layer: Dict, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(cfg: AudioEncoderConfig, layer: Dict, x: torch.Tensor, mask: torch.Tensor,
+                   tp=Replicated) -> torch.Tensor:
     eps = cfg.layer_norm_epsilon
     h = _layer_norm(x, layer["attn_norm"], eps)
-    x = x + _windowed_attention(cfg, layer, h, mask)
+    x = x + _windowed_attention(cfg, layer, h, mask, tp)
     h = _layer_norm(x, layer["ffn_norm"], eps)
-    h = _gelu(apply_linear(layer["fc1"], h)).to(x.dtype)
-    return x + apply_linear(layer["fc2"], h).to(x.dtype)
-
-
-def _layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter subtree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+    h = _gelu(apply_linear(layer["fc1"], tp.enter(h))).to(x.dtype)
+    return x + _row_linear(layer["fc2"], h, tp).to(x.dtype)
 
 
 def encode_chunks_batch(
@@ -88,9 +89,13 @@ def encode_chunks_batch(
     mel: torch.Tensor,  # [B, num_chunks * chunk_frames, mels] f32, zero-padded tails
     valid_tokens: Sequence[int],  # per stream: post-conv valid token count
     num_chunks: int,
+    tp=Replicated,
 ) -> torch.Tensor:
     """[B, num_chunks * tokens_per_chunk, output_dim]; rows >= valid_tokens[b]
-    are garbage and must be sliced off by the caller."""
+    are garbage and must be sliced off by the caller. Differentiable; the
+    convolutions hold TF32 off only while they run forward, so a caller that
+    takes gradients holds it off around the backward too (``parallel.train``
+    does). ``tp``: the tensor-parallel seams (``decoder.forward_train``)."""
     B = mel.shape[0]
     chunk = cfg.chunk_frames
     tpc = cfg.tokens_per_chunk
@@ -123,9 +128,8 @@ def encode_chunks_batch(
     valid = torch.as_tensor(list(valid_tokens), device=x.device).reshape(B, 1, 1)
     mask = (token_idx < valid).reshape(B * G, W)
 
-    layers = params["layers"]
-    for i in range(cfg.block_count):
-        x = _encoder_layer(cfg, _layer_slice(layers, i), x, mask)
+    for layer in layer_views(params["layers"]):
+        x = _encoder_layer(cfg, layer, x, mask, tp)
 
     x = x.reshape(B, G * W, -1)[:, : C * tpc]
     x = _layer_norm(x, params["ln_post"], cfg.layer_norm_epsilon)

@@ -60,3 +60,45 @@ def test_narrow_gate_fails_tokens_that_differ_before_any_flip():
     smoke = _smoke()
     assert "no argmax flip" in smoke.narrow_verdict([5, 6, 7, 8], [5, 1, 7, 8], [])
     assert "before the first flip" in smoke.narrow_verdict([5, 6, 7, 8], [5, 1, 9, 2], [(2, 4e-4)])
+
+
+def test_train_phase_holds_the_reference_training_dtypes(tmp_path):
+    """``training_params`` turns the precise loader's dense f32 trees into the
+    dtypes of ``__graft_entry__._random_params``, leaf for leaf."""
+    import numpy as np
+
+    import __graft_entry__ as graft
+    from helpers.tiny_model import write_tiny_model
+
+    path = str(tmp_path / "tiny.gguf")
+    cfg = write_tiny_model(path, quantize=True, seed=0)
+    smoke = _smoke()
+    _cfg, _prefix, _suffix, enc, dec = smoke._dense_trees(path)
+    want_enc, want_dec = graft._random_params(cfg, device=False)
+
+    def dtypes(tree):
+        if isinstance(tree, dict):
+            return {k: dtypes(v) for k, v in tree.items() if k != "s_t"}
+        return str(tree.dtype).replace("torch.", "") if isinstance(tree, torch.Tensor) else np.dtype(tree.dtype).name
+
+    assert dtypes(smoke.training_params(enc)) == dtypes(want_enc)
+    assert dtypes(smoke.training_params(dec)) == dtypes(want_dec)
+
+
+def test_train_batch_labels_are_the_next_transcript_tokens(tmp_path):
+    from helpers.tiny_model import write_tiny_model
+
+    path = str(tmp_path / "tiny.gguf")
+    write_tiny_model(path, quantize=True, seed=0)
+    smoke = _smoke()
+    cfg, prefix, suffix, _enc, _dec = smoke._dense_trees(path)
+    mel, ids, labels = smoke.train_batch(torch, cfg, prefix, suffix, batch=3, seconds=2.0, labels=5, seed=1)
+    chunks = mel.shape[1] // cfg.audio.chunk_frames
+    assert mel.shape == (3, chunks * cfg.audio.chunk_frames, cfg.audio.num_mel_bins) and chunks == 2
+    n_prompt = len(prefix) + chunks * cfg.audio.tokens_per_chunk + len(suffix)
+    assert ids.shape == labels.shape == (3, n_prompt + 5)
+    assert (ids[:, len(prefix):len(prefix) + chunks * cfg.audio.tokens_per_chunk] == cfg.audio_token_id).all()
+    kept = labels != -100
+    assert kept.sum(dim=1).tolist() == [5, 5, 5]
+    assert torch.equal(labels[:, n_prompt - 1:-1], ids[:, n_prompt:])
+    assert not kept[:, -1].any() and not kept[:, : n_prompt - 1].any()
