@@ -33,7 +33,7 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    kernel on the card, ``attention_chunked`` on the CPU);
 5. a 0.6B-width Q8_0 GGUF with random weights from a seed, served by the
    port's engine server through the wire loop on in-memory pipes, driven
-   along six paths, each with the kernels' launch counts set to 0 just
+   along seven paths, each with the kernels' launch counts set to 0 just
    before it and read just after:
    - slice: a 2 s and a 12 s speech-like request and silence, one at a time;
    - batch: four concurrent requests of 2-3 s, then four of 4-12 s, written
@@ -63,6 +63,14 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
      device coalesce into batched ticks (fresh, then extending; no degrade), whose replies
      must equal the same ticks one at a time. Then, on the model, ticks held
      against stateless ``transcribe`` under ``narrow_verdict``'s rule;
+   - dictate: ``engine_cli``'s dictation loop (``engine_cli.dictate``) on the
+     served model, in-process: a 12 s speech-like clip in 250 ms blocks paced
+     in real time through the recording controller (interim ticks on its own
+     thread at the adaptive 140-460 ms interval, then finalize); the events'
+     names and fields must be the reference's, and the final text a fresh
+     ``IncrementalTranscriber`` transcribe's under ``narrow_verdict`` (or, from
+     the interim cache, the last tick's). Q8 kernels #1-#3 and decode
+     attention must launch on it, the batched attention and the fused FFN not;
 6. precise: the same artifact served with ``LIGHT_WHISPER_PRECISE=1`` (dense
    f32 weights, f32 compute and KV cache) through the wire loop, the 2 s and
    12 s requests of ``slice``: no kernel launched, every KV cache f32, the
@@ -76,7 +84,13 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
 8. ``engine_cli serve`` in a subprocess, twice: from a copy of the package
    with an empty kernel build directory (cold: one transcribe) and from the
    checkout (warm: two, the first's ``inference_ms`` beside the second's),
-   each timed from spawn to its init reply.
+   each timed from spawn to its init reply; then ``engine_cli dictate`` of a
+   4 s WAV in real time in a fresh process, with neither ``--device`` nor
+   ``--engine`` (the engine from ``LIGHT_WHISPER_ASR_ENGINE``): one ``final``
+   event, and its log line must name ``cuda``.
+
+``LIGHT_WHISPER_FORCE_CPU`` would move the port to the CPU: the script
+refuses to run with it set, and no child process inherits it.
 
 Then the ``nvidia-smi`` line, a JSON line with one entry per kernel and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -1451,6 +1465,96 @@ def phase_interim(torch, engine, client, launches: Launches):
 
 
 # ---------------------------------------------------------------------------
+# phase dictate: engine_cli's dictation loop on the served model
+
+DICTATE_SECONDS = 12.0
+INTERIM_FIELDS = ["event", "stable", "tentative", "covered_samples", "tick_ms"]
+FINAL_FIELDS = ["event", "text", "language", "duration_seconds", "from_interim_cache", "interim_ticks", "asr_ms",
+                "too_short"]
+
+
+def check_dictation(events, seconds: float):
+    """(interim events, the final event) of one dictation, after the schema
+    checks: the reference's event names and fields, one ``final`` event last,
+    its duration within 0.01 s of ``seconds`` and not too short."""
+    require(bool(events) and events[-1].get("event") == "final", f"dictation ended without a final event: {events}")
+    *interims, final = events
+    for event in interims:
+        require(list(event) == INTERIM_FIELDS and event["event"] == "interim", f"interim event {event}")
+    require(list(final) == FINAL_FIELDS, f"final event fields {list(final)}")
+    require(abs(final["duration_seconds"] - seconds) <= 0.01 and final["too_short"] is False,
+            f"final event {final} for {seconds} s of audio")
+    require(final["interim_ticks"] == len(interims), f"{final['interim_ticks']} ticks, {len(interims)} events")
+    return interims, final
+
+
+def phase_dictate(torch, engine, launches: Launches):
+    """``engine_cli``'s dictation loop (``dictate``) in-process on the served
+    0.6B model: a 12 s speech-like clip in 250 ms blocks paced in real time,
+    interim ticks on the recording controller's own thread, then finalize. The
+    final text is held against a fresh ``IncrementalTranscriber`` of the clip
+    as the session heard it (through the capture ring's int16) under
+    ``narrow_verdict``, or, from the interim cache, against the last tick."""
+    import numpy as np
+
+    from light_whisper_tpu_torch.audio.capture import mix_to_mono
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.runtime.engine_cli import dictate
+    from light_whisper_tpu_torch.serving.incremental import IncrementalTranscriber
+
+    model = engine.model
+    clip = speechlike(DICTATE_SECONDS, seed=SEED + 200)
+    events, steps = [], []
+    inc = IncrementalTranscriber(model)
+
+    def emit(kind, **payload):
+        if kind == "interim":  # on the interim thread, before its next tick
+            steps.append((len(inc.last_decode_step_s), _median_ms(inc.last_decode_step_s)))
+        events.append({"event": kind, **payload})
+
+    t0 = time.perf_counter()
+    launches.start()
+    dictate(model, clip, emit, realtime=True, transcriber=inc)
+    wall = time.perf_counter() - t0
+    got = launches.read("dictate", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
+                                    "decode_attention"])  # after the controller joined its thread
+    for name in ("decode_attention_batched", "fused_ffn_step"):
+        require(got[name] == 0, f"{name} launched {got[name]} times on the dictate path")
+    interims, final = check_dictation(events, DICTATE_SECONDS)
+    require(len(interims) >= 1, f"no interim event in a {DICTATE_SECONDS:g} s dictation")
+    for event, (n, med) in zip(interims, steps):
+        say(f"  interim: covered {event['covered_samples'] / 16000:.2f} s, tick_ms={event['tick_ms']}, "
+            f"stable {len(event['stable'])} chars, tentative {len(event['tentative'])} chars; "
+            f"{n} decode steps, median {med:.3f} ms")
+    say(f"  session: {inc.full_prefills} full and {inc.incremental_prefills} incremental prefills, draft "
+        f"{inc.draft_tokens_accepted}/{inc.draft_tokens_offered} tokens accepted; the final's call decoded "
+        f"{len(inc.last_decode_step_s)} steps, median {_median_ms(inc.last_decode_step_s):.3f} ms")
+
+    # a fresh transcribe of what the capture ring handed the session, on this
+    # (the main) thread: the final's reference, and a control of the step time
+    heard = mix_to_mono(clip).astype(np.float32) / 32768.0
+    fresh_inc = IncrementalTranscriber(model)
+    fresh = fresh_inc.transcribe(heard)
+    say(f"  fresh transcribe on the main thread: {len(fresh_inc.last_decode_step_s)} decode steps, median "
+        f"{_median_ms(fresh_inc.last_decode_step_s):.3f} ms")
+    if final["from_interim_cache"]:
+        last = interims[-1]["stable"] + interims[-1]["tentative"]
+        require(final["text"] == last, "final text from the interim cache is not the last tick's text")
+        note = "the last tick's text"
+    else:
+        parted = _divergence(model, heard, fresh.tokens, inc._last_generated)
+        verdict = narrow_verdict(fresh.tokens, inc._last_generated, [parted] if parted else [])
+        note = ("a fresh transcribe's tokens, identical" if parted is None else
+                f"a fresh transcribe's tokens up to token {parted[0]}, top-2 gap {parted[1]:.3g}")
+        require(verdict is None, f"dictate final vs a fresh transcribe: {verdict}")
+        require(parted is not None or final["text"] == fresh.text, "equal tokens, other text")
+    ticks = sorted(e["tick_ms"] for e in interims)
+    say(f"phase dictate: ok in {wall:.1f} s ({len(interims)} ticks on {DICTATE_SECONDS:g} s, "
+        f"tick_ms p50 {ticks[len(ticks) // 2]} max {ticks[-1]}; final asr_ms {final['asr_ms']}, "
+        f"from_interim_cache {final['from_interim_cache']}, held to {note}; launches {got})")
+
+
+# ---------------------------------------------------------------------------
 # phase precise: LIGHT_WHISPER_PRECISE=1 through the wire loop
 
 
@@ -1759,9 +1863,9 @@ def _serve_cli(model_path: str, root: str, label: str, requests: int) -> dict:
 
     from light_whisper_tpu_torch.eval.speechlike import speechlike
 
-    env = dict(os.environ, LIGHT_WHISPER_MODEL_PATH=model_path,
-               LIGHT_WHISPER_DATA_DIR=os.path.join(REPO, "build", "chip_smoke", "data"),
-               PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    env = _child_env(LIGHT_WHISPER_MODEL_PATH=model_path,
+                     LIGHT_WHISPER_DATA_DIR=os.path.join(REPO, "build", "chip_smoke", "data"),
+                     PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
     cmd = [sys.executable, "-m", "light_whisper_tpu_torch.runtime.engine_cli", "serve", "--engine", "qwen3-asr-0.6b"]
     with tempfile.TemporaryFile("w+") as err:
         t0 = time.perf_counter()
@@ -1799,6 +1903,54 @@ def _serve_cli(model_path: str, root: str, label: str, requests: int) -> dict:
     return {"init_s": init_s, "inference_ms": inference_ms}
 
 
+def _child_env(**extra) -> dict:
+    """The environment of a child process: never ``LIGHT_WHISPER_FORCE_CPU``,
+    which would move the port to the CPU without a word."""
+    env = dict(os.environ, **extra)
+    env.pop("LIGHT_WHISPER_FORCE_CPU", None)
+    return env
+
+
+def _dictate_cli(model_path: str, seconds: float = 4.0) -> dict:
+    """``engine_cli dictate`` in a fresh process from the checkout, as the app
+    would spawn it: no ``--device``, no ``--engine`` (the engine from
+    ``LIGHT_WHISPER_ASR_ENGINE``), a speech-like WAV paced in real time."""
+    import tempfile
+
+    from light_whisper_tpu_torch.audio.pcm import encode_wav_mono_s16
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+
+    wav = os.path.join(REPO, "build", "chip_smoke", f"dictate-{seconds:g}s.wav")
+    with open(wav, "wb") as f:
+        f.write(encode_wav_mono_s16(speechlike(seconds, seed=SEED + 201), 16000))
+    env = _child_env(LIGHT_WHISPER_MODEL_PATH=model_path, LIGHT_WHISPER_ASR_ENGINE="qwen3-asr-0.6b",
+                     LIGHT_WHISPER_DATA_DIR=os.path.join(REPO, "build", "chip_smoke", "data"),
+                     PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "light_whisper_tpu_torch.runtime.engine_cli", "dictate", "--wav", wav]
+    with tempfile.TemporaryFile("w+") as err:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=REPO,
+                                  timeout=600)
+        except subprocess.TimeoutExpired:
+            raise PhaseError("engine_cli dictate did not finish in 600 s")
+        wall = time.perf_counter() - t0
+        err.seek(0)
+        stderr = err.read()
+    require(proc.returncode == 0, f"engine_cli dictate exited {proc.returncode}: {stderr[-2000:]}")
+    events = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    interims, final = check_dictation(events, seconds)
+    require(sum(e["event"] == "final" for e in events) == 1, f"engine_cli dictate events {events}")
+    device_lines = [line for line in stderr.splitlines() if "on device" in line]
+    require(len(device_lines) == 1 and "on device cuda" in device_lines[0],
+            f"engine_cli dictate's device log line: {device_lines}")
+    say(f"  dictate ({seconds:g} s WAV, real time, fresh process): {wall:.3f} s from spawn to exit; "
+        f"{device_lines[0].split(' - ')[-1]}")
+    for event in events:
+        say(f"    {json.dumps(event, ensure_ascii=False)[:300]}")
+    return {"wall_s": wall, "ticks": len(interims), "asr_ms": final["asr_ms"]}
+
+
 def phase_cli(model_path: str):
     """Warm start: a fresh ``engine_cli serve`` from a copy of the package
     whose kernel build directory is empty (``_build`` builds under the
@@ -1814,14 +1966,17 @@ def phase_cli(model_path: str):
         cold = _serve_cli(model_path, root, "cold (empty kernel build)", requests=1)
         require(os.path.isdir(os.path.join(root, "build", "lwt_torch_kernels")), "the cold copy built no kernels")
     warm = _serve_cli(model_path, REPO, "warm (kernels built)", requests=2)
+    dictated = _dictate_cli(model_path)
     say(f"phase cli: ok engine_cli serve init-to-ready cold {cold['init_s']:.3f} s, warm {warm['init_s']:.3f} s "
-        f"(shell budget 120 s); inference_ms cold {cold['inference_ms']}, warm first/second {warm['inference_ms']}")
+        f"(shell budget 120 s); inference_ms cold {cold['inference_ms']}, warm first/second {warm['inference_ms']}; "
+        f"engine_cli dictate of 4 s {dictated['wall_s']:.3f} s ({dictated['ticks']} ticks, final asr_ms "
+        f"{dictated['asr_ms']})")
 
 
 # ---------------------------------------------------------------------------
 
-# the main paths, driven through EngineServer
-WIRE_PATHS = ("slice", "batch", "longform", "single-pass", "fused-ffn", "interim")
+# the main paths: through EngineServer, and engine_cli's dictation loop
+WIRE_PATHS = ("slice", "batch", "longform", "single-pass", "fused-ffn", "interim", "dictate")
 KERNELS = (
     ("q8_matmul", "light_whisper_tpu_torch/csrc/q8_matmul.cu", "light_whisper_tpu/ops/q8_matmul.py:164",
      "logits T=1 152576x1024"),
@@ -1874,6 +2029,10 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if os.environ.get("LIGHT_WHISPER_FORCE_CPU"):
+        print("chip_smoke: LIGHT_WHISPER_FORCE_CPU is set; it would move the port to the CPU", file=sys.stderr)
+        return 2
+    os.environ.pop("LIGHT_WHISPER_FORCE_CPU", None)  # an empty one too: no child inherits it
     if not os.path.isdir(os.path.join(REPO, "light_whisper_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (light_whisper_tpu_torch/ missing)",
               file=sys.stderr)
@@ -1911,6 +2070,7 @@ def main(argv=None) -> int:
                 finally:
                     os.environ.pop("LIGHT_WHISPER_DISABLE_SESSION_REUSE", None)
                 phase_interim(torch, engine, client, launches)
+                phase_dictate(torch, engine, launches)
                 if args.profile:
                     phase_profile(torch, engine.model, args.profile)
                 bye = client.call({"action": "exit", "request_id": 999})

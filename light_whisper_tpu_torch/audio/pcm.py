@@ -1,11 +1,14 @@
 """Host-side audio ingestion: inline PCM / WAV decode and resampling.
 
 The port's copy of the parts of ``light_whisper_tpu/audio/pcm.py`` that the
-engine server calls. Behavioral parity targets in the reference app:
+engine server and the recording stack call. Behavioral parity targets in the
+reference app:
 
 - inline payload decode  → ``server_common.py:145-187`` (``decode_inline_audio``)
 - linear-interp resample → ``qwen3_asr_server.py:230-243`` (``_resample``)
+- capture-delta resample → ``resample.rs:130-159`` (``StreamingResampler``)
 - file loading           → ``qwen3_asr_server.py:256-267`` (soundfile + channel mean)
+- WAV encode             → ``audio_service/wav.rs`` (``encode_wav_mono_s16``)
 
 These run on the host (numpy) and hand the model 16 kHz float32 mono.
 """
@@ -99,6 +102,58 @@ def resample_linear(audio: np.ndarray, source_rate: int, target_rate: int = TARG
     ).astype(np.float32)
 
 
+class StreamingResampler:
+    """Phase-continuous linear resampler for capture deltas.
+
+    The recording pump resamples each ring delta as it arrives; restarting
+    :func:`resample_linear`'s endpoint-pinned grid a delta would stretch every
+    chunk slightly and sample each seam twice. This keeps a fractional
+    source-position cursor across deltas: the output grid is
+    ``k * source_rate / target_rate`` over the whole stream, however it was
+    chunked (the app's stateful interim resampler, ``resample.rs:130-159``).
+    """
+
+    def __init__(self, source_rate: int, target_rate: int = TARGET_SAMPLE_RATE) -> None:
+        if source_rate <= 0 or target_rate <= 0:
+            raise ValueError(f"invalid sample rate: {source_rate} -> {target_rate}")
+        self.source_rate = int(source_rate)
+        self.target_rate = int(target_rate)
+        self._step = self.source_rate / self.target_rate
+        self._next_pos = 0.0  # absolute source position of the next output
+        self._consumed = 0  # source samples pushed so far
+        self._prev: Optional[np.float32] = None  # the last source sample seen
+
+    def push(self, delta: np.ndarray) -> np.ndarray:
+        """Resample the next chunk of the stream; returns float32 output."""
+        delta = np.asarray(delta, dtype=np.float32)
+        if self.source_rate == self.target_rate:
+            self._consumed += len(delta)
+            return delta
+        if len(delta) == 0:
+            return np.empty(0, dtype=np.float32)
+        # local buffer = [previous chunk's last sample] + delta, so that an
+        # output between the two chunks interpolates across the seam
+        if self._prev is not None:
+            buf = np.concatenate(([self._prev], delta))
+            start = self._consumed - 1
+        else:
+            buf = delta
+            start = self._consumed
+        last_pos = self._consumed + len(delta) - 1
+        out_positions = []
+        pos = self._next_pos
+        while pos <= last_pos:
+            out_positions.append(pos)
+            pos += self._step
+        self._next_pos = pos
+        self._consumed += len(delta)
+        self._prev = buf[-1]
+        if not out_positions:
+            return np.empty(0, dtype=np.float32)
+        local = np.asarray(out_positions, dtype=np.float64) - start
+        return np.interp(local, np.arange(len(buf), dtype=np.float64), buf).astype(np.float32)
+
+
 def read_audio_file_mono_f32(path: str) -> Tuple[np.ndarray, int]:
     """Read an audio file to (float32 mono samples, source_rate).
 
@@ -164,3 +219,20 @@ def _read_wav_mono_f32(path: str) -> Tuple[np.ndarray, int]:
         samples = samples[: len(samples) - len(samples) % channels]
         samples = samples.reshape(-1, channels).mean(axis=1, dtype=np.float32)
     return np.ascontiguousarray(samples, dtype=np.float32), rate
+
+
+def encode_wav_mono_s16(samples_f32: np.ndarray, sample_rate: int) -> bytes:
+    """Encode mono float32 samples to canonical 16-bit PCM WAV bytes."""
+    pcm = np.clip(np.asarray(samples_f32) * 32768.0, -32768, 32767).astype("<i2")
+    return encode_wav_mono_pcm16(pcm, sample_rate)
+
+
+def encode_wav_mono_pcm16(samples_i16: np.ndarray, sample_rate: int) -> bytes:
+    """Encode mono int16 samples to WAV bytes, bit-exact (no f32 round trip)."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(np.asarray(samples_i16, dtype="<i2").tobytes())
+    return buf.getvalue()

@@ -239,3 +239,7 @@ class IncrementalTranscriber:
         frames_final = min(n_samples // wmel.HOP, max(0, (n_samples - wmel.N_FFT // 2) // wmel.HOP + 1))
         wt = self._window_tokens
         return min((frames_final // group_frames) * wt, (n_audio // wt) * wt)
+
+    def transcribe(self, audio: np.ndarray) -> TranscriptionResult:
+        """``StreamingSession``'s duck type: the whole window, from sample 0."""
+        return self.transcribe_window(audio, window_start_sample=0)

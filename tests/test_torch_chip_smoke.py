@@ -1,6 +1,8 @@
 """``chip_smoke.py`` refuses to report a result without a GPU, and outside a
 checkout of the repository; its narrow-model token gate holds the card to
-the CPU within the 1e-3 tie band."""
+the CPU within the 1e-3 tie band; its dictation check holds the reference's
+event schema, and no child process it starts inherits
+``LIGHT_WHISPER_FORCE_CPU``."""
 
 import importlib.util
 import os
@@ -102,3 +104,45 @@ def test_train_batch_labels_are_the_next_transcript_tokens(tmp_path):
     assert kept.sum(dim=1).tolist() == [5, 5, 5]
     assert torch.equal(labels[:, n_prompt - 1:-1], ids[:, n_prompt:])
     assert not kept[:, -1].any() and not kept[:, : n_prompt - 1].any()
+
+
+def _events(ticks=2, seconds=4.0):
+    interims = [{"event": "interim", "stable": "a", "tentative": "b", "covered_samples": 8000 * (i + 1),
+                 "tick_ms": 500.0} for i in range(ticks)]
+    final = {"event": "final", "text": "ab", "language": "unknown", "duration_seconds": seconds,
+             "from_interim_cache": False, "interim_ticks": ticks, "asr_ms": 900.0, "too_short": False}
+    return interims + [final]
+
+
+def test_dictation_check_passes_the_reference_schema():
+    smoke = _smoke()
+    interims, final = smoke.check_dictation(_events(), 4.0)
+    assert len(interims) == 2 and final["text"] == "ab"
+
+
+@pytest.mark.parametrize("spoil", ["extra-field", "missing-final", "duration", "too-short", "tick-count",
+                                   "renamed-event"])
+def test_dictation_check_fails_a_spoiled_dictation(spoil):
+    smoke = _smoke()
+    events = _events()
+    if spoil == "extra-field":
+        events[-1]["device"] = "cuda"
+    elif spoil == "missing-final":
+        events = events[:-1]
+    elif spoil == "duration":
+        events[-1]["duration_seconds"] = 3.98
+    elif spoil == "too-short":
+        events[-1]["too_short"] = True
+    elif spoil == "tick-count":
+        events[-1]["interim_ticks"] = 3
+    else:
+        events[0]["event"] = "partial"
+    with pytest.raises(smoke.PhaseError):
+        smoke.check_dictation(events, 4.0)
+
+
+def test_child_processes_never_inherit_force_cpu(monkeypatch):
+    smoke = _smoke()
+    monkeypatch.setenv("LIGHT_WHISPER_FORCE_CPU", "1")
+    env = smoke._child_env(LIGHT_WHISPER_ASR_ENGINE="qwen3-asr-0.6b")
+    assert "LIGHT_WHISPER_FORCE_CPU" not in env and env["LIGHT_WHISPER_ASR_ENGINE"] == "qwen3-asr-0.6b"

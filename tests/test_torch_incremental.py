@@ -6,6 +6,10 @@ tick and the five counters (full, incremental and clip-guard prefills, draft
 tokens offered and accepted) must be identical. Each tick must also equal the
 port's stateless ``transcribe`` of that window; an argmax flip there is
 accepted only inside the 1e-3 top-2 tie band, and its gap is printed.
+
+Then the dictation slice over it: both packages' ``StreamingSession`` ticked
+after the same 250 ms blocks of one clip (interim results and the final
+equal, under the same tie rule).
 """
 
 import numpy as np
@@ -25,13 +29,19 @@ COUNTERS = ("full_prefills", "incremental_prefills", "clip_guard_prefills", "dra
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["q8_0", "dense"])
-def models(request, tmp_path_factory):
-    mp = pytest.MonkeyPatch()
-    mp.setenv("LWT_LOAD_OVERLAP_WARMUP", "0")
+def tiny_path(request, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("inc") / "tiny.gguf")
     write_tiny_model(path, quantize=request.param, seed=0)
+    return path
+
+
+@pytest.fixture(scope="module")
+def models(tiny_path):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("LWT_LOAD_OVERLAP_WARMUP", "0")
     try:
-        yield RefModel(path, max_new_tokens=MAX_NEW), Qwen3ASRModel(path, device="cpu", max_new_tokens=MAX_NEW)
+        yield (RefModel(tiny_path, max_new_tokens=MAX_NEW),
+               Qwen3ASRModel(tiny_path, device="cpu", max_new_tokens=MAX_NEW))
     finally:
         mp.undo()
 
@@ -44,16 +54,21 @@ def _counters(inc):
     return {name: getattr(inc, name) for name in COUNTERS}
 
 
+def _parting(port, audio, want, got):
+    """(step, the port's stateless top-2 gap there) where two token lists part."""
+    step = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), min(len(want), len(got)))
+    logits = port.teacher_forced_logits(audio, want[:step])[step].numpy()[: port.config.decoder.vocab_size]
+    top2 = np.sort(logits)[-2:]
+    return step, float(top2[1] - top2[0])
+
+
 def assert_stateless_within_tie(port, window, got):
     """The tick's tokens against the port's stateless transcribe: equal, or
     parted where the stateless path's top-2 logits lie within the tie band."""
     want = port.transcribe(window).tokens
     if got == want:
         return None
-    step = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), min(len(want), len(got)))
-    logits = port.teacher_forced_logits(window, want[:step])[step].numpy()[: port.config.decoder.vocab_size]
-    top2 = np.sort(logits)[-2:]
-    gap = float(top2[1] - top2[0])
+    step, gap = _parting(port, window, want, got)
     print(f"tick parts from stateless at step {step}: top-2 gap {gap:.3g}")
     assert gap <= TIE_BAND, (step, gap, want, got)
     return gap
@@ -202,3 +217,58 @@ def test_forward_refuses_a_write_past_the_capacity(models):
     cache.pos = 56
     port_dec.forward(cfg, port.decoder_params, embeds, cache)
     assert cache.pos == 64
+
+
+# -- the dictation slice: StreamingSession over the tick, without threads or a clock
+
+
+def _same_or_tie(port, audio, what, want_text, got_text, want_tokens, got_tokens):
+    """True if equal; False after a flip inside the tie band (printed); fails
+    on any other difference."""
+    if got_text == want_text:
+        return True
+    step, gap = _parting(port, audio, want_tokens, got_tokens)
+    print(f"{what}: the packages part at token {step}, top-2 gap {gap:.3g}")
+    assert gap <= TIE_BAND, (what, step, gap, want_text, got_text)
+    return False
+
+
+@pytest.mark.parametrize("ticks_after,reuse", [((3, 6, 8), True), ((3, 6), False)],
+                         ids=["interim-cache", "full-transcribe"])
+def test_streaming_session_matches_the_reference(models, ticks_after, reuse):
+    """Both packages' ``StreamingSession(IncrementalTranscriber(model))`` take
+    the same 2 s clip in 250 ms blocks and tick after the same blocks: every
+    interim result and the final result are equal. Ticking after the last
+    block leaves a tail gap of 0 (the final reuses the last tick); stopping
+    two blocks short leaves 0.5 s (the final transcribes the whole clip).
+    Clip seed 12: on seed 11's first 0.75 s the two packages' stateless
+    ``transcribe`` already part, at token 3 with a top-2 gap of 6.8e-3 (logits
+    near 1.06, under one bf16 ulp there), the tiny fixture's recorded near-tie
+    class (ROADMAP §3), before any streaming code runs."""
+    from light_whisper_tpu.serving import streaming as ref_streaming
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.serving import streaming as port_streaming
+
+    ref, port = models
+    audio = speechlike(2.0, seed=12)
+    r_inc = ref_inc.IncrementalTranscriber(ref, max_new_tokens=MAX_NEW)
+    p_inc = port_inc.IncrementalTranscriber(port, max_new_tokens=MAX_NEW)
+    r_session, p_session = ref_streaming.StreamingSession(r_inc), port_streaming.StreamingSession(p_inc)
+    block = SR // 4
+    for k in range(1, len(audio) // block + 1):
+        r_session.accept(audio[(k - 1) * block : k * block])
+        p_session.accept(audio[(k - 1) * block : k * block])
+        if k not in ticks_after:
+            continue
+        want, got = r_session.tick(), p_session.tick()
+        if not _same_or_tie(port, audio[: k * block], f"tick after block {k}", want.text, got.text,
+                            r_inc._last_generated, p_inc._last_generated):
+            return  # parted at a tie: later ticks verify different drafts
+        assert (got.stable, got.tentative, got.covered_samples) == (want.stable, want.tentative,
+                                                                     want.covered_samples)
+    want, got = r_session.finalize(), p_session.finalize()
+    assert got.from_interim_cache is want.from_interim_cache is reuse
+    if _same_or_tie(port, audio, "final", want.text, got.text, r_inc._last_generated, p_inc._last_generated):
+        assert got.language == want.language
+    assert (p_inc.full_prefills, p_inc.incremental_prefills) == (r_inc.full_prefills, r_inc.incremental_prefills)
+    assert p_inc.full_prefills >= 1 and p_inc.incremental_prefills >= 1

@@ -6,10 +6,10 @@ with audio and the wire loop from the port's own modules, answers through
 ``EngineServer`` one ``transcribe``, then a pair of transcribes coalesced
 into one batch (queued behind a busy device) and a ``long_form`` request,
 and then lists what got imported; a second one runs one interim tick pair of
-``IncrementalTranscriber`` and two pooled wire requests with session reuse
-on. Asking for the CUDA device on a machine without a GPU raises, and
-``engine_cli serve`` without ``--device cpu`` fails loudly instead of
-serving on the CPU."""
+``IncrementalTranscriber``, two pooled wire requests with session reuse on
+and one ``engine_cli dictate``. Asking for the CUDA device on a machine
+without a GPU raises, and ``engine_cli serve`` without ``--device cpu`` (or
+``LIGHT_WHISPER_FORCE_CPU``) fails loudly instead of serving on the CPU."""
 
 import json
 import os
@@ -87,7 +87,7 @@ print(json.dumps({"replies": replies, "more": more, "cuda_error": cuda_error,
 
 
 SESSION_SCRIPT = r"""
-import base64, io, json, sys
+import base64, contextlib, io, json, os, sys
 import numpy as np
 from light_whisper_tpu_torch.eval.speechlike import speechlike
 from light_whisper_tpu_torch.runtime.server import EngineServer
@@ -111,7 +111,18 @@ server = Qwen3EngineServer(model_path=path, device="cpu", model_factory=lambda p
 EngineServer(server.hooks(), stdin=io.StringIO(transcribe(1, audio[:32000]) + transcribe(2, audio)
                                                + json.dumps({"action": "stats"}) + "\n"), stdout=out,
              max_concurrency=1).run()  # one at a time: the second request extends the first
+# one dictation through engine_cli, on the CPU that LIGHT_WHISPER_FORCE_CPU asks for
+from light_whisper_tpu_torch.audio.pcm import encode_wav_mono_s16
+from light_whisper_tpu_torch.runtime import engine_cli
+wav = os.path.join(os.path.dirname(path), "dictate.wav")
+with open(wav, "wb") as f:
+    f.write(encode_wav_mono_s16(speechlike(1.5, seed=2), 16000))
+os.environ.update(LIGHT_WHISPER_MODEL_PATH=path, LIGHT_WHISPER_FORCE_CPU="1")
+events = io.StringIO()
+with contextlib.redirect_stdout(events):
+    engine_cli.main(["dictate", "--wav", wav, "--no-realtime"])
 print(json.dumps({"tick": tick, "counters": [inc.full_prefills, inc.incremental_prefills],
+                  "dictate": [json.loads(l) for l in events.getvalue().splitlines()],
                   "replies": [json.loads(l) for l in out.getvalue().splitlines()],
                   "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")),
                   "reference": sorted(m for m in sys.modules
@@ -156,8 +167,9 @@ def test_port_serves_without_importing_jax(tiny_gguf):
 
 
 def test_interim_tick_and_pooled_request_without_importing_jax(tiny_gguf):
-    """One tick pair of ``IncrementalTranscriber`` and two pooled wire requests
-    on a named stream (session reuse on), then the module list."""
+    """One tick pair of ``IncrementalTranscriber``, two pooled wire requests
+    on a named stream (session reuse on) and one ``engine_cli dictate`` with
+    ``LIGHT_WHISPER_FORCE_CPU`` set, then the module list."""
     proc = subprocess.run([sys.executable, "-c", SESSION_SCRIPT, tiny_gguf], capture_output=True, text=True,
                           env=_env(session_reuse=True), cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -167,6 +179,9 @@ def test_interim_tick_and_pooled_request_without_importing_jax(tiny_gguf):
     assert init["success"] and first["success"] and second["success"]
     assert stats["stats"]["session_hits"] == 1 and stats["stats"]["speculative_decoding"] is True
     assert stats["stats"]["vad_prefix_reuse"] >= 1
+    *_interims, final = result["dictate"]
+    assert final["event"] == "final" and final["duration_seconds"] == 1.5 and final["text"]
+    assert "on device cpu (LIGHT_WHISPER_FORCE_CPU)" in proc.stderr
     assert result["modules"] == []
     assert result["reference"] == []
 
@@ -176,6 +191,7 @@ def test_engine_cli_without_a_gpu_fails_loudly(tiny_gguf):
         pytest.skip("a GPU is present")
     env = _env()
     env["LIGHT_WHISPER_MODEL_PATH"] = tiny_gguf
+    env.pop("LIGHT_WHISPER_FORCE_CPU", None)  # the explicit CPU request
     proc = subprocess.run(
         [sys.executable, "-m", "light_whisper_tpu_torch.runtime.engine_cli", "serve", "--engine", "qwen3-asr-0.6b"],
         input='{"action": "exit", "request_id": 1}\n', capture_output=True, text=True, env=env, cwd=REPO,

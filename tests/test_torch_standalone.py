@@ -52,7 +52,10 @@ def test_no_import_of_the_reference(path):
 
 
 SESSION_MODULES = ("serving/incremental.py", "serving/incremental_batch.py", "serving/session_bridge.py",
-                   "serving/session_pool.py", "models/vad/api.py", "runtime/qwen3_server.py")
+                   "serving/session_pool.py", "models/vad/api.py", "runtime/qwen3_server.py",
+                   "serving/streaming.py", "text/prefix.py", "audio/capture.py", "audio/pcm.py",
+                   "runtime/recording_state.py", "runtime/recording.py", "runtime/config.py",
+                   "runtime/engine_cli.py")
 
 
 @pytest.mark.parametrize("module", SESSION_MODULES)
