@@ -24,7 +24,11 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    schedules in torch at the kernel's split count, and each case names its
    clusters and how many of them the card holds at once; flash prefill and
    the fused FFN are also checked bitwise run to run, the fused FFN row by
-   row against T=1 calls)
+   row against T=1 calls); and at the tensor-parallel shard shapes that
+   ``Qwen3ASRModel(mesh=)`` gives one rank (0.6B and 1.7B at tp=2, 1.7B at
+   tp=4: the o/down partials without the residual epilogue, qkv/gate-up with
+   the norm prologue, the 0.6B encoder's linears at tp=2, attention on 4 and
+   2 KV heads)
    (no single PyTorch call computes Q8_0 dequant-matmul or the fused FFN;
    ``fused_ffn_step`` is timed beside the decoder's six-launch FFN half);
 4. a narrow model (head dim 128, two query heads per KV head) transcribed on
@@ -81,7 +85,15 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    widths (bf16 matrices, B = 4 clips of 10 s, 48 labels each) through a
    dp1 x tp1 mesh on NCCL (the loss must fall, no kernel launched) and a
    checkpoint of that state saved and restored bitwise;
-8. ``engine_cli serve`` in a subprocess, twice: from a copy of the package
+8. mesh: the artifact as ``Qwen3ASRModel(mesh=)`` on a one-rank NCCL group
+   (dp1 x tp1: the tensor-parallel route and the sessions' cache placement)
+   against the unmeshed model on the same inputs under ``narrow_verdict``'s
+   rule: the 12 s clip, a fresh then an extending tick, ``transcribe_batch``
+   of four clips and the dp-split batch at dp=1 (with ``LWT_FUSED_FFN=1`` set:
+   the fused FFN must stay off under a mesh), each decode ms/step beside the
+   unmeshed one; then ``encode_chunks_sp`` at sp=1 on the 300 s clip's mel
+   against ``encode_chunks``. Counted in the kernels line's launches;
+9. ``engine_cli serve`` in a subprocess, twice: from a copy of the package
    with an empty kernel build directory (cold: one transcribe) and from the
    checkout (warm: two, the first's ``inference_ms`` beside the second's),
    each timed from spawn to its init reply; then ``engine_cli dictate`` of a
@@ -103,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import json
 import os
 import subprocess
@@ -684,6 +697,86 @@ def phase_kernels(torch):
         record("flash_prefill", f"run to run T={T} start={start} C={Cf}", float((again[0] - again[1]).abs().max()),
                0.0, 0.0, 0.0, bitwise=True)
         del kf, vf, kz, vz
+    # -- tensor-parallel shard shapes (Qwen3ASRModel(mesh=)): one rank's share of the heads and
+    # the FFN columns. Row-parallel o/down take the partial product (#2, no residual epilogue:
+    # the ranks' f32 partials are summed first); column-parallel qkv/gateup keep the norm
+    # prologue (#3); the encoder's sharded linears are #1; attention runs on Hkv/tp heads ----
+    for label, D, Hq_, Hkv_, F, tp in (("0.6B tp=2", 1024, 16, 8, 3072, 2), ("1.7B tp=2", 2048, 16, 8, 6144, 2),
+                                       ("1.7B tp=4", 2048, 16, 8, 6144, 4)):
+        shard = {"qkv": ((Hq_ + 2 * Hkv_) * hd // tp, D), "o": (D, Hq_ * hd // tp),
+                 "gateup": (2 * F // tp, D), "down": (D, F // tp)}
+        for name, (N, K) in shard.items():
+            qw, sw = weights(L, N, K)
+            wd = q8.dequantize(qw, sw)
+            for T in (1, 8):
+                x = randn(T, K).to(torch.bfloat16)
+                if name in ("o", "down"):
+                    check("q8_matmul_stacked", f"{label} {name} partial T={T} {N}x{K} {q8_schedule(T, N, K)}",
+                          lambda i: q8.q8_matmul_stacked(x, qw, sw, i % L),
+                          lambda i: q8.q8_matmul_plain(x, qw[i % L], sw[i % L]), calls=L, work=q8_work(T, N, K),
+                          yardstick_fn=bf16_ref(x, wd),
+                          split_fn=lambda i: q8.q8_matmul_split_plain(x, qw[i % L], sw[i % L], q8.GEMV_SPLITS))
+                    continue
+                norm_w = 1.0 + randn(K, scale=0.1)
+                check("q8_matmul_stacked_fused", f"{label} {name} +norm T={T} {N}x{K} {q8_schedule(T, N, K)}",
+                      lambda i: q8.q8_matmul_stacked_fused(x, qw, sw, i % L, norm_w=norm_w, eps=eps),
+                      lambda i: q8.q8_matmul_fused_plain(x, qw[i % L], sw[i % L], norm_w, eps, None),
+                      split_fn=lambda i: q8.q8_matmul_fused_plain(x, qw[i % L], sw[i % L], norm_w, eps, None,
+                                                                 splits=q8.GEMV_SPLITS),
+                      calls=L, tol_rel=1e-3, work=q8_work(T, N, K, K * 4), yardstick_fn=bf16_ref(x, wd))
+            del qw, sw, wd
+    # the 0.6B encoder at tp=2 (7 of 14 heads, 1,792 of 3,584 FFN columns), 12 s (156 rows), 18 layers cycled
+    E = ENC_LAYERS
+    for case, N, K in (("enc.q/k/v 0.6B tp=2 T=156 448x896", 448, 896),
+                       ("enc.fc1 0.6B tp=2 T=156 1792x896", 1792, 896),
+                       ("enc.fc2 0.6B tp=2 T=156 896x1792", 896, 1792)):
+        qw, sw = weights(E, N, K)
+        wd = q8.dequantize(qw, sw)
+        x = randn(156, K).to(torch.bfloat16)
+        splits = q8.schedule_splits(156, N, K)
+        check("q8_matmul", f"{case} {q8_schedule(156, N, K)}", lambda i: q8.q8_matmul(x, qw[i % E], sw[i % E]),
+              lambda i: q8.q8_matmul_plain(x, qw[i % E], sw[i % E]), calls=E, work=q8_work(156, N, K),
+              yardstick_fn=bf16_ref(x, wd),
+              split_fn=lambda i: q8.q8_matmul_split_plain(x, qw[i % E], sw[i % E], splits))
+        del qw, sw, wd
+    # decode attention on a rank's heads: 8 over 4 KV heads (tp=2), 4 over 2 (1.7B tp=4)
+    C = 1024
+    splits = da.split_count(C)
+    for Hq_, Hkv_ in ((8, 4), (4, 2)):
+        kc = randn(L, Hkv_, C, hd).to(torch.bfloat16)
+        vc = randn(L, Hkv_, C, hd).to(torch.bfloat16)
+        for T, start in ((1, 200), (64, 150)):
+            qx = randn(T, Hq_, hd, scale=3.0)
+            sdpa = sdpa_rows(torch, qx, start, C)
+            resident = da.resident_clusters(T, Hq_, Hkv_, C, hd, splits)
+            check("decode_attention",
+                  f"{Hq_}/{Hkv_} heads T={T} start={start} C={C} S={splits} ({resident} clusters resident)",
+                  lambda i: da.decode_attention(qx, kc, vc, start, i % L),
+                  lambda i: da.decode_attention_plain(qx, kc, vc, start, i % L),
+                  calls=L, tol_abs=5e-3, work=attention_work(qx, Hkv_, [(start, T)]),
+                  library_fn=lambda i: sdpa(kc[i % L], vc[i % L]),
+                  split_fn=lambda i: da.attention_split_plain(qx, kc[i % L], vc[i % L], start, splits))
+        del kc, vc
+        positions = [0, 37, 511, C - 1, 3, 200, 700, C // 2]
+        kb = randn(8, L, Hkv_, C, hd).to(torch.bfloat16)
+        vb = randn(8, L, Hkv_, C, hd).to(torch.bfloat16)
+        for b, p in enumerate(positions):
+            kb[b, :, :, p + 1:] = 1e4
+            vb[b, :, :, p + 1:] = -1e4
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        qx = randn(8, Hq_, hd, scale=3.0)
+        qb = qx.to(torch.bfloat16)[:, :, None]
+        bmask = (torch.arange(C, device=dev)[None, :] <= pos[:, None].long())[:, None, None]
+        kz, vz = zero_past(kb, bmask[..., None]), zero_past(vb, bmask[..., None])
+        check("decode_attention_batched", f"{Hq_}/{Hkv_} heads B=8 C={C} S={splits} pos={positions}",
+              lambda i: da.decode_attention_batched(qx, kb, vb, pos, i % L, positions),
+              lambda i: da.decode_attention_batched_plain(qx, kb, vb, pos, i % L),
+              calls=L, tol_abs=5e-3, work=attention_work(qx, Hkv_, [(p, 1) for p in positions]),
+              library_fn=lambda i: torch.nn.functional.scaled_dot_product_attention(
+                  qb, kz[:, i % L], vz[:, i % L], attn_mask=bmask, enable_gqa=True)[:, :, 0],
+              split_fn=lambda i: da.decode_attention_batched_split_plain(qx, kb, vb, pos, i % L, splits))
+        del kb, vb, kz, vz
+
     n_cases = sum(len(v) for v in results.values())
     say(f"phase kernels: ok {n_cases} cases")
     return results
@@ -693,115 +786,17 @@ def phase_kernels(torch):
 # model artifacts: Qwen3-ASR 0.6B widths and random tensors from a seed
 
 
+def write_model(path: str, cfg, seed: int) -> None:
+    """A Q8_0 GGUF of the port's ``synthetic.random_tensors(cfg, seed)``."""
+    from light_whisper_tpu_torch.models.qwen3_asr import synthetic
+
+    synthetic.write_model(path, cfg, seed)
+
+
 def qwen3_asr_06b_config():
-    """Qwen3-ASR 0.6B: a Qwen3-0.6B decoder and the AuT audio encoder."""
-    from light_whisper_tpu_torch.models.qwen3_asr.config import AudioEncoderConfig, DecoderConfig, Qwen3ASRConfig
+    from light_whisper_tpu_torch.models.qwen3_asr.synthetic import qwen3_asr_06b_config as config
 
-    dec = DecoderConfig(vocab_size=151_936, embedding_length=1024, block_count=28, feed_forward_length=3072,
-                        head_count=16, head_count_kv=8, key_length=128, context_length=32_768)
-    enc = AudioEncoderConfig(num_mel_bins=128, d_model=896, block_count=18, head_count=14,
-                             feed_forward_length=3584, downsample_hidden_size=480,
-                             output_dim=dec.embedding_length, n_window=50, n_window_infer=400,
-                             max_source_positions=3000)
-    return Qwen3ASRConfig(audio=enc, decoder=dec, audio_token_id=151_676)
-
-
-def random_tensors(cfg, seed: int):
-    """Every tensor of a Qwen3-ASR artifact, (out, in)-oriented, random from
-    ``seed``: matrices N(0, 1/in), embeddings N(0, 0.05^2), unit norms, zero
-    biases. The draw order is part of the artifact: a seed names its bytes."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    d, a = cfg.decoder, cfg.audio
-
-    def mat(out_f, in_f, scale=None):
-        scale = scale if scale is not None else (1.0 / np.sqrt(in_f))
-        return (rng.standard_normal((out_f, in_f)) * scale).astype(np.float32)
-
-    tensors = {
-        "token_embd.weight": mat(d.vocab_size, d.embedding_length, 0.05),
-        "output_norm.weight": np.ones(d.embedding_length, np.float32)
-        + rng.standard_normal(d.embedding_length).astype(np.float32) * 0.02,
-    }
-    for i in range(d.block_count):
-        p = f"blk.{i}."
-        qdim = d.head_count * d.key_length
-        kvdim = d.head_count_kv * d.key_length
-        tensors[p + "attn_norm.weight"] = np.ones(d.embedding_length, np.float32)
-        tensors[p + "attn_q.weight"] = mat(qdim, d.embedding_length)
-        tensors[p + "attn_k.weight"] = mat(kvdim, d.embedding_length)
-        tensors[p + "attn_v.weight"] = mat(kvdim, d.embedding_length)
-        tensors[p + "attn_output.weight"] = mat(d.embedding_length, qdim)
-        tensors[p + "attn_q_norm.weight"] = np.ones(d.key_length, np.float32)
-        tensors[p + "attn_k_norm.weight"] = np.ones(d.key_length, np.float32)
-        tensors[p + "ffn_norm.weight"] = np.ones(d.embedding_length, np.float32)
-        tensors[p + "ffn_gate.weight"] = mat(d.feed_forward_length, d.embedding_length)
-        tensors[p + "ffn_up.weight"] = mat(d.feed_forward_length, d.embedding_length)
-        tensors[p + "ffn_down.weight"] = mat(d.embedding_length, d.feed_forward_length)
-
-    h = a.downsample_hidden_size
-    tensors["aenc.conv1.weight"] = (rng.standard_normal((h, 1, 3, 3)) * 0.2).astype(np.float32)
-    tensors["aenc.conv1.bias"] = np.zeros(h, np.float32)
-    tensors["aenc.conv2.weight"] = (rng.standard_normal((h, h, 3, 3)) * (0.2 / np.sqrt(h))).astype(np.float32)
-    tensors["aenc.conv2.bias"] = np.zeros(h, np.float32)
-    tensors["aenc.conv3.weight"] = (rng.standard_normal((h, h, 3, 3)) * (0.2 / np.sqrt(h))).astype(np.float32)
-    tensors["aenc.conv3.bias"] = np.zeros(h, np.float32)
-    tensors["aenc.conv_out.weight"] = mat(a.d_model, h * a.freq_after_conv)
-    for i in range(a.block_count):
-        p = f"aenc.blk.{i}."
-        tensors[p + "attn_norm.weight"] = np.ones(a.d_model, np.float32)
-        tensors[p + "attn_norm.bias"] = np.zeros(a.d_model, np.float32)
-        for name in ("attn_q", "attn_k", "attn_v", "attn_output"):
-            tensors[p + name + ".weight"] = mat(a.d_model, a.d_model)
-            tensors[p + name + ".bias"] = np.zeros(a.d_model, np.float32)
-        tensors[p + "ffn_norm.weight"] = np.ones(a.d_model, np.float32)
-        tensors[p + "ffn_norm.bias"] = np.zeros(a.d_model, np.float32)
-        tensors[p + "ffn_up.weight"] = mat(a.feed_forward_length, a.d_model)
-        tensors[p + "ffn_up.bias"] = np.zeros(a.feed_forward_length, np.float32)
-        tensors[p + "ffn_down.weight"] = mat(a.d_model, a.feed_forward_length)
-        tensors[p + "ffn_down.bias"] = np.zeros(a.d_model, np.float32)
-    tensors["aenc.ln_post.weight"] = np.ones(a.d_model, np.float32)
-    tensors["aenc.ln_post.bias"] = np.zeros(a.d_model, np.float32)
-    tensors["aenc.proj1.weight"] = mat(a.d_model, a.d_model)
-    tensors["aenc.proj1.bias"] = np.zeros(a.d_model, np.float32)
-    tensors["aenc.proj2.weight"] = mat(a.output_dim, a.d_model)
-    tensors["aenc.proj2.bias"] = np.zeros(a.output_dim, np.float32)
-    return tensors
-
-
-def _vocab(cfg):
-    """Byte tokens, filler pieces, and the specials at the config's ids."""
-    from light_whisper_tpu_torch.models.qwen3_asr.tokenizer import byte_to_unicode
-
-    b2u = byte_to_unicode()
-    n = cfg.decoder.vocab_size
-    tokens = [b2u[b] for b in range(256)] + [f"tok{i}" for i in range(256, n)]
-    types = [1] * n
-    for tid, text in ((cfg.pad_token_id, "<|endoftext|>"), (cfg.bos_token_id, "<|im_start|>"),
-                      (cfg.eos_token_id, "<|im_end|>"), (cfg.audio_token_id, "<|audio_pad|>")):
-        tokens[tid] = text
-        types[tid] = 3
-    return tokens, types
-
-
-TEMPLATE = "<|im_start|>user\n{audio}<|im_end|>\n<|im_start|>assistant\n"
-
-
-def write_model(path: str, cfg, seed: int, template: str = TEMPLATE) -> None:
-    """A Q8_0 GGUF of ``random_tensors(cfg, seed)`` through the port's export."""
-    from light_whisper_tpu_torch.models.qwen3_asr.export import write_model as export
-
-    tokens, types = _vocab(cfg)
-    meta = {
-        "tokenizer.ggml.tokens": tokens,
-        "tokenizer.ggml.token_type": types,
-        "tokenizer.ggml.merges": [],
-        "tokenizer.chat_template": template,
-    }
-    tmp = path + ".tmp"
-    export(tmp, cfg, random_tensors(cfg, seed), meta, quantize=True)
-    os.replace(tmp, path)
+    return config()
 
 
 # ---------------------------------------------------------------------------
@@ -1691,6 +1686,29 @@ def _dense_trees(path: str):
     return w.config, prefix, suffix, w.encoder_params, w.decoder_params
 
 
+@contextlib.contextmanager
+def nccl_mesh(torch):
+    """A one-rank NCCL process group over a ``FileStore`` and its dp1 x tp1
+    mesh, torn down on exit."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from light_whisper_tpu_torch.parallel import mesh as pmesh
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="lwt-nccl-store-", dir=os.path.join(REPO, "build"))
+    pmesh.init_distributed("cuda", 0, 1, store=dist.FileStore(os.path.join(store_dir, "store"), 1), timeout_s=120)
+    try:
+        mesh = pmesh.make_mesh(1, 1, device_type="cuda")
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
 def phase_train(torch, model_path: str, launches: Launches, steps: int = 5, profile_dir=None):
     """(a) one train step of the narrow model in f32 on the card and on the
     CPU from the same parameters and batch; (b) ``steps`` steps at the 0.6B
@@ -1698,12 +1716,9 @@ def phase_train(torch, model_path: str, launches: Launches, steps: int = 5, prof
     ``profile_dir``, two more, the second under torch.profiler), and a
     checkpoint of that state saved and restored bitwise."""
     import shutil
-    import tempfile
-
-    import torch.distributed as dist
 
     from light_whisper_tpu_torch.models.qwen3_asr.params import numpy_from_params
-    from light_whisper_tpu_torch.parallel import checkpoint, mesh as pmesh, train
+    from light_whisper_tpu_torch.parallel import checkpoint, train
 
     t_phase = time.perf_counter()
     launches.start()
@@ -1742,12 +1757,10 @@ def phase_train(torch, model_path: str, launches: Launches, steps: int = 5, prof
     B, seconds, n_labels = 4, 10.0, 48
     mel, ids, labels = train_batch(torch, cfg, prefix, suffix, batch=B, seconds=seconds, labels=n_labels,
                                    seed=SEED + 200)
-    store_dir = tempfile.mkdtemp(prefix="lwt-train-store-", dir=os.path.join(REPO, "build"))
-    pmesh.init_distributed("cuda", 0, 1, store=dist.FileStore(os.path.join(store_dir, "store"), 1), timeout_s=120)
     ckpt = os.path.join(REPO, "build", "chip_smoke", "train-ckpt")
+    stack = contextlib.ExitStack()
     try:
-        mesh = pmesh.make_mesh(1, 1, device_type="cuda")
-        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = stack.enter_context(nccl_mesh(torch))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1791,13 +1804,140 @@ def phase_train(torch, model_path: str, launches: Launches, steps: int = 5, prof
         say(f"  checkpoint of the 0.6B state ({size / 2**30:.3f} GiB): save {save_s:.3f} s, restore {restore_s:.3f} s, "
             f"bitwise equal after step {restored.step}")
     finally:
-        dist.destroy_process_group()
-        shutil.rmtree(store_dir, ignore_errors=True)
+        stack.close()
         shutil.rmtree(ckpt, ignore_errors=True)
     del state, template, restored
     torch.cuda.empty_cache()
     say(f"phase train: ok (narrow f32 card = CPU; 0.6B {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"{ms:.3f} ms/step; no kernel launched; {time.perf_counter() - t_phase:.1f} s)")
+
+
+MESH_BUDGET = 128  # decode budget of phase mesh's requests: ms/step over 127 steps, the phase under ~90 s
+
+
+def _mesh_verdict(plain, meshed, audio, ref, got, label: str) -> str:
+    """``narrow_verdict`` of the meshed model's tokens against the unmeshed
+    model's: where they differ, the steps whose teacher-forced argmax
+    (along the unmeshed tokens) differs between the two models, each with the
+    unmeshed top-2 gap, must be ties, and the tokens equal before the first."""
+    if got == ref:
+        return "identical"
+    want = plain.teacher_forced_logits(audio, ref)
+    have = meshed.teacher_forced_logits(audio, ref)
+    vocab = plain.config.decoder.vocab_size
+    flips = []
+    for step, (a, b) in enumerate(zip(want, have)):
+        if int(a[:vocab].argmax()) != int(b[:vocab].argmax()):
+            top2 = a[:vocab].topk(2).values
+            flips.append((step, float(top2[0] - top2[1])))
+    verdict = narrow_verdict(ref, got, flips)
+    require(verdict is None, f"mesh {label}: {verdict}")
+    return f"parts at step {min(s for s, _ in flips)}, flips {flips} (ties)"
+
+
+def phase_mesh(torch, model_path: str, launches: Launches, profile_dir=None):
+    """The served 0.6B artifact as ``Qwen3ASRModel(mesh=)`` on a one-rank NCCL
+    group (dp1 x tp1): the tensor-parallel route (o/down partials summed,
+    then the residual; no fused FFN even with ``LWT_FUSED_FFN=1``) and the
+    sessions' cache placement, held against the unmeshed model on the same
+    inputs: the 12 s clip, a fresh then an extending tick, a batch of four,
+    the dp-split batch at dp=1; then ``encode_chunks_sp`` at sp=1 on the
+    300 s clip's mel against ``encode_chunks``. With ``profile_dir``, the
+    12 s clip meshed and unmeshed under torch.profiler, 32 decode steps each."""
+    from light_whisper_tpu_torch.audio import mel as wmel
+    from light_whisper_tpu_torch.eval.speechlike import speechlike
+    from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode_chunks
+    from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
+    from light_whisper_tpu_torch.parallel import dryrun, encoder_sp
+    from light_whisper_tpu_torch.serving.incremental import IncrementalTranscriber
+
+    t_phase = time.perf_counter()
+    clip = speechlike(12.0, seed=SEED + 1)
+    recording = speechlike(9.0, seed=SEED + 110)
+    windows = (recording[: 6 * 16000], recording)  # 6 s then 9 s: one window group stable, a draft to verify
+    clips = [speechlike(3.0, seed=SEED + 50 + i) for i in range(4)]
+
+    def drive(model, split=None):
+        out = {"transcribe": model.transcribe(clip).tokens, "step_ms": _median_ms(model.last_decode_step_s)}
+        keep = model.max_new_tokens
+        model.max_new_tokens = INTERIM_BUDGET
+        try:
+            inc = IncrementalTranscriber(model, max_new_tokens=INTERIM_BUDGET)
+            out["ticks"] = [inc.transcribe_window(w, 0).tokens for w in windows]
+            out["tick_counts"] = _tick_counts(inc)
+        finally:
+            model.max_new_tokens = keep
+        out["batch"] = [r.tokens for r in model.transcribe_batch(clips)]
+        if split is not None:
+            out["dp"] = [r.tokens for r in dryrun.transcribe_batch_dp(model, clips, split)]
+        return out
+
+    plain = Qwen3ASRModel(model_path, device="cuda", max_new_tokens=MESH_BUDGET)
+    want = drive(plain)
+    with nccl_mesh(torch) as mesh:
+        meshed = Qwen3ASRModel(model_path, max_new_tokens=MESH_BUDGET, mesh=mesh)
+        require(meshed.device.type == "cuda" and meshed.rank_config == plain.config, "a dp1 x tp1 mesh changes widths")
+        launches.start()
+        os.environ["LWT_FUSED_FFN"] = "1"  # off under a mesh whatever it says
+        try:
+            got = drive(meshed, mesh)
+        finally:
+            os.environ.pop("LWT_FUSED_FFN", None)
+        counts = launches.read("mesh", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
+                                        "decode_attention", "decode_attention_batched"])
+        require(counts["fused_ffn_step"] == 0, f"fused_ffn_step launched {counts['fused_ffn_step']} times under a mesh")
+        require(got["tick_counts"][1] >= 1, f"the extending tick did not extend: {got['tick_counts']}")
+
+        say(f"  transcribe 12 s: {len(got['transcribe'])} tokens, "
+            f"{_mesh_verdict(plain, meshed, clip, want['transcribe'], got['transcribe'], 'transcribe')}; decode "
+            f"{got['step_ms']:.3f} ms/step meshed vs {want['step_ms']:.3f} unmeshed (median of "
+            f"{MESH_BUDGET - 1} steps)")
+        for name, window, a, b in zip(("fresh", "extending"), windows, want["ticks"], got["ticks"]):
+            say(f"  tick {name} ({len(window) / 16000:.0f} s): {len(b)} tokens, "
+                f"{_mesh_verdict(plain, meshed, window, a, b, f'tick {name}')}")
+        say(f"  tick counters (full, incremental prefills, draft offered, accepted): meshed {got['tick_counts']}, "
+            f"unmeshed {want['tick_counts']}")
+        # what a decode step's row-parallel sums cost: o and down, one all-reduce each a layer
+        row = torch.zeros((1, plain.config.decoder.embedding_length), device="cuda")
+        calls = 2 * plain.config.decoder.block_count * 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            meshed.tp.reduce(row)
+        torch.cuda.synchronize()
+        per_ms = (time.perf_counter() - t0) * 1000 / calls
+        say(f"  tp.reduce of one f32 row of {row.shape[1]} on the one-rank NCCL group: {per_ms:.4f} ms a call (host "
+            f"wall over {calls}); {2 * plain.config.decoder.block_count} a decode step: "
+            f"{per_ms * 2 * plain.config.decoder.block_count:.3f} ms")
+        for what in ("batch", "dp"):
+            for i, (a, b) in enumerate(zip(want["batch"], got[what])):
+                say(f"  {'transcribe_batch' if what == 'batch' else 'dp-split batch (dp=1)'} clip {i}: "
+                    f"{len(b)} tokens, {_mesh_verdict(plain, meshed, clips[i], a, b, f'{what} {i}')}")
+
+        # the sequence-parallel encoder at sp=1 on the 300 s clip's mel (512 chunks)
+        sp_mesh = encoder_sp.make_sp_mesh(1, device_type="cuda")
+        padded, n_audio, _ids, _len, mel_frames, num_chunks = plain._prepare(speechlike(300.0, seed=SEED + 90))
+        mel, _clip_max = wmel.log_mel_with_max(torch.from_numpy(padded).cuda(), mel_frames)
+        chunk = plain.config.audio.chunk_frames
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * chunk - mel.shape[0]))
+        with torch.no_grad():
+            one = encode_chunks(plain.config.audio, plain.encoder_params, mel, n_audio, num_chunks)
+            sp = encoder_sp.encode_chunks_sp(plain.config.audio,
+                                             encoder_sp.replicate_params(plain.encoder_params, sp_mesh),
+                                             mel, n_audio, num_chunks, sp_mesh)
+        err = float((sp[:n_audio].float() - one[:n_audio].float()).abs().max())
+        say(f"  encode_chunks_sp sp=1, {num_chunks} chunks ({n_audio} valid tokens): max|d| {err:.3g} from "
+            f"encode_chunks (tol 2e-2)")
+        require(bool(torch.isfinite(sp).all()) and err <= 2e-2, f"encode_chunks_sp differs by {err}")
+        if profile_dir:
+            for model, tag in ((plain, "mesh-12s-unmeshed"), (meshed, "mesh-12s")):
+                model.max_new_tokens = 32
+                profile_run(torch, tag, f"12 s transcribe, {'dp1 x tp1 mesh' if model is meshed else 'no mesh'}, "
+                            f"32 decode steps", lambda: model.transcribe(clip), profile_dir)
+    del plain, meshed
+    torch.cuda.empty_cache()
+    say(f"phase mesh: ok (dp1 x tp1 on NCCL; decode {got['step_ms']:.3f} ms/step meshed vs "
+        f"{want['step_ms']:.3f} unmeshed; {time.perf_counter() - t_phase:.1f} s)")
 
 
 def profile_run(torch, tag: str, label: str, run, out_dir: str) -> None:
@@ -1820,7 +1960,8 @@ def profile_run(torch, tag: str, label: str, run, out_dir: str) -> None:
     path = os.path.join(out_dir, f"profile_{tag}.txt")
     with open(path, "w") as f:
         f.write(f"{card_line()}\n{label}: wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms in "
-                f"{n_kernels} launches\n{events.table(sort_by='self_device_time_total', row_limit=30)}\n")
+                f"{n_kernels} launches\n{events.table(sort_by='self_device_time_total', row_limit=30)}\n"
+                f"by host time:\n{events.table(sort_by='self_cpu_time_total', row_limit=30)}\n")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         say(f"  profile {tag}: {e.key[:70]} {e.self_device_time_total / 1000:.3f} ms x{e.count}")
     busy = device_ms / wall_ms if wall_ms else float("nan")
@@ -1976,7 +2117,7 @@ def phase_cli(model_path: str):
 # ---------------------------------------------------------------------------
 
 # the main paths: through EngineServer, and engine_cli's dictation loop
-WIRE_PATHS = ("slice", "batch", "longform", "single-pass", "fused-ffn", "interim", "dictate")
+WIRE_PATHS = ("slice", "batch", "longform", "single-pass", "fused-ffn", "interim", "dictate", "mesh")
 KERNELS = (
     ("q8_matmul", "light_whisper_tpu_torch/csrc/q8_matmul.cu", "light_whisper_tpu/ops/q8_matmul.py:164",
      "logits T=1 152576x1024"),
@@ -2016,8 +2157,8 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="identify, build and check the kernels; skip the model phases")
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile a short 12 s transcribe (with and without LWT_FUSED_FFN), a "
-                             "B=8 batch and a 0.6B train step; tables under DIR")
+                        help="also profile a short 12 s transcribe (with and without LWT_FUSED_FFN, and with "
+                             "and without a mesh), a B=8 batch and a 0.6B train step; tables under DIR")
     args = parser.parse_args(argv)
 
     try:
@@ -2081,6 +2222,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             phase_precise(torch, model_path, launches)
             phase_train(torch, model_path, launches, profile_dir=args.profile)
+            phase_mesh(torch, model_path, launches, profile_dir=args.profile)
             phase_cli(model_path)
         torch.cuda.synchronize()
         require(not _no_reference_modules(), f"imported: {_no_reference_modules()}")

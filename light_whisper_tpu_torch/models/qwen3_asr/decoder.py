@@ -40,6 +40,16 @@ Routing follows the reference's fused-decode flow (``_layer_forward_stacked``):
   reference's ``_layer_forward_stacked`` does; the batched forwards never
   take it, as the reference's ``_layer_forward_batch`` does not.
 
+Under a tensor-parallel mesh (``tp``, a ``parallel.sharding.TensorParallel``;
+``Qwen3ASRModel(mesh=)``) ``cfg`` holds this rank's head and FFN counts and
+``params`` its shard. The route is then one at every ``tp``, 1 included:
+qkv and gate/up keep the rms-norm prologue (their input is replicated); o
+and down never take the residual epilogue, which would add the residual on
+every rank: their f32 partial is summed over the ranks (``tp.reduce``), then
+added to the residual in bf16, the reference's unfused rounding; and the
+fused FFN stays off, as the reference's does under a mesh (it runs only on
+the stacked-kernel path, which needs the scales a mesh skips).
+
 Numerics match the reference's unfused path, which its fused projection
 kernels are built to reproduce bit for bit. The fused FFN adds the residual
 once in f32 (the unfused half rounds twice in bf16), so it is off by default,
@@ -87,6 +97,21 @@ PREFILL_KEY_CHUNK = 1024  # the reference's _attention_chunked key chunk
 def torch_dtype(compute_dtype: str) -> torch.dtype:
     """The config's ``compute_dtype`` string as a torch dtype."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[compute_dtype]
+
+
+class Replicated:
+    """The tensor-parallel seams of a layer when every weight is whole: both
+    are the identity. ``parallel.sharding.TensorParallel`` is the sharded
+    counterpart, where ``enter`` opens a column-parallel block and ``reduce``
+    sums a row-parallel block's partial outputs over the ranks."""
+
+    @staticmethod
+    def enter(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        return x
 
 
 @dataclasses.dataclass
@@ -250,11 +275,16 @@ def _layer_forward_rows(
     sin: torch.Tensor,
     attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
     fused_ffn: bool = False,
+    tp=Replicated,
 ) -> torch.Tensor:
     """One layer over R rows. ``attend(q [R, Hq, hd], k, v [R, Hkv, hd])`` writes
     the new K/V into its cache and returns the attention ``[R, Hq, hd]``.
     ``fused_ffn`` sends the FFN half of up to 8 Q8 rows through
-    :func:`_fused_ffn_half`."""
+    :func:`_fused_ffn_half`. ``tp``: a mesh's seams, which take the mesh's
+    route (the module docstring) at every ``tp``, 1 included; ``Replicated``
+    without a mesh. Nothing here takes a gradient, so the column-parallel
+    blocks need no ``enter``."""
+    meshed = tp is not Replicated
     R = x.shape[0]
     eps = cfg.rms_epsilon
     quantized = all("q" in layers[name] for name in _PROJ_NAMES)
@@ -273,6 +303,8 @@ def _layer_forward_rows(
         return q8_matmul_stacked_fused(h, p["q"], p["s"], idx, norm_w=norm_w, eps=eps)
 
     def proj_residual(name, h, residual):
+        if meshed:  # row-parallel: the ranks' f32 partials summed, then the residual once
+            return residual + tp.reduce(proj(name, h)).to(residual.dtype)
         if not fused:
             return residual + proj(name, h).to(residual.dtype)
         p = layers[name]
@@ -286,7 +318,7 @@ def _layer_forward_rows(
 
     attn = attend(q, k, v)
     x = proj_residual("o", attn.reshape(R, -1), x)
-    if fused and fused_ffn:
+    if fused and fused_ffn and not meshed:
         return _fused_ffn_half(cfg, layers, idx, x)
     gateup = proj_norm("gateup", x, layers["ffn_norm"][idx])
     gate, up = torch.chunk(gateup, 2, dim=-1)
@@ -302,6 +334,7 @@ def _layer_forward(
     cos: torch.Tensor,
     sin: torch.Tensor,
     fused_ffn: bool = False,
+    tp=Replicated,
 ) -> torch.Tensor:
     def attend(q, k, v):
         pos, T = cache.pos, q.shape[0]
@@ -309,7 +342,7 @@ def _layer_forward(
         cache.v[idx, :, pos : pos + T] = v.transpose(0, 1).to(cache.v.dtype)
         return _attention(cfg, q, cache, idx, pos)
 
-    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend, fused_ffn)
+    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend, fused_ffn, tp)
 
 
 def _layer_forward_batch(
@@ -322,6 +355,7 @@ def _layer_forward_batch(
     sin: torch.Tensor,
     streams: torch.Tensor,  # arange(B), int64 on the device
     pos: torch.Tensor,  # cache.pos as int64
+    tp=Replicated,
 ) -> torch.Tensor:
     """One layer over B single-token streams: the projections see T = B rows
     (one weight read for the batch); the cache write and attention are per
@@ -333,7 +367,7 @@ def _layer_forward_batch(
         cache.v[:, idx][streams, :, pos] = v.to(cache.v.dtype)
         return _attention_decode_batch(cfg, q, cache, idx)
 
-    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend)
+    return _layer_forward_rows(cfg, layers, idx, x, cos, sin, attend, tp=tp)
 
 
 def _layer_forward_batch_seq(
@@ -346,6 +380,7 @@ def _layer_forward_batch_seq(
     sin: torch.Tensor,
     streams: torch.Tensor,  # [B, 1] int64 on the device
     positions: torch.Tensor,  # [B, T] int64: pos[b] + t
+    tp=Replicated,
 ) -> torch.Tensor:
     """One layer over B streams × T new positions: rows ``[B·T, D]`` through
     the Q8 kernels; cache writes and attention per stream."""
@@ -361,14 +396,15 @@ def _layer_forward_batch_seq(
             for b in range(B)
         ])
 
-    return _layer_forward_rows(cfg, layers, idx, x.reshape(B * T, D), cos, sin, attend).reshape(B, T, D)
+    return _layer_forward_rows(cfg, layers, idx, x.reshape(B * T, D), cos, sin, attend, tp=tp).reshape(B, T, D)
 
 
-def forward(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, cache: KVCache) -> torch.Tensor:
+def forward(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, cache: KVCache, tp=Replicated) -> torch.Tensor:
     """Run all layers over T new positions; returns hidden states [T, D] and
     advances ``cache`` (written in place) by T. A write past the cache's
     capacity raises (the reference's ``dynamic_update_slice`` would clamp it
-    and a slice would truncate it, both silently)."""
+    and a slice would truncate it, both silently). ``tp``: a mesh's seams
+    (``cfg``, ``params`` and ``cache`` then this rank's)."""
     T = embeds.shape[0]
     capacity = cache.k.shape[2]
     if not 0 <= cache.pos <= capacity - T:
@@ -379,12 +415,13 @@ def forward(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor, cache: KVCac
     fused_ffn = _use_fused_ffn()
     x = embeds
     for idx in range(cfg.block_count):
-        x = _layer_forward(cfg, layers, idx, x, cache, cos, sin, fused_ffn)
+        x = _layer_forward(cfg, layers, idx, x, cache, cos, sin, fused_ffn, tp)
     cache.pos += T
     return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
 
 
-def forward_decode_batch(cfg: DecoderConfig, params: Dict, x: torch.Tensor, cache: BatchKVCache) -> torch.Tensor:
+def forward_decode_batch(cfg: DecoderConfig, params: Dict, x: torch.Tensor, cache: BatchKVCache,
+                         tp=Replicated) -> torch.Tensor:
     """One decode step for B independent streams (``x [B, D]``, one token
     each); returns hidden states ``[B, D]`` and advances every stream by one.
     The streams ride the matmul row axis, so each layer's weights are read
@@ -394,13 +431,13 @@ def forward_decode_batch(cfg: DecoderConfig, params: Dict, x: torch.Tensor, cach
     pos = cache.pos.long()
     layers = params["layers"]
     for idx in range(cfg.block_count):
-        x = _layer_forward_batch(cfg, layers, idx, x, cache, cos, sin, streams, pos)
+        x = _layer_forward_batch(cfg, layers, idx, x, cache, cos, sin, streams, pos, tp)
     cache.advance(1)
     return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
 
 
 def forward_prefill_batch(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor,
-                          cache: BatchKVCache) -> torch.Tensor:
+                          cache: BatchKVCache, tp=Replicated) -> torch.Tensor:
     """Prefill T new positions for each of B streams (``embeds [B, T, D]``);
     returns hidden states ``[B, T, D]`` and advances every stream by T."""
     B, T, _ = embeds.shape
@@ -413,24 +450,9 @@ def forward_prefill_batch(cfg: DecoderConfig, params: Dict, embeds: torch.Tensor
     layers = params["layers"]
     x = embeds
     for idx in range(cfg.block_count):
-        x = _layer_forward_batch_seq(cfg, layers, idx, x, cache, cos, sin, streams, positions)
+        x = _layer_forward_batch_seq(cfg, layers, idx, x, cache, cos, sin, streams, positions, tp)
     cache.advance(T)
     return rms_norm(x, params["final_norm"], cfg.rms_epsilon)
-
-
-class Replicated:
-    """The tensor-parallel seams of a layer when every weight is whole: both
-    are the identity. ``parallel.sharding.TensorParallel`` is the sharded
-    counterpart, where ``enter`` opens a column-parallel block and ``reduce``
-    sums a row-parallel block's partial outputs over the ranks."""
-
-    @staticmethod
-    def enter(x: torch.Tensor) -> torch.Tensor:
-        return x
-
-    @staticmethod
-    def reduce(x: torch.Tensor) -> torch.Tensor:
-        return x
 
 
 def layer_views(layers: Dict) -> List[Dict]:
@@ -531,6 +553,7 @@ def decode_greedy(
     max_new_tokens: int,
     step_times: Optional[List[float]] = None,
     budget: Optional[int] = None,
+    tp=Replicated,
 ) -> List[int]:
     """Greedy decode, one step per token with the argmax on the device.
 
@@ -549,7 +572,7 @@ def decode_greedy(
         if len(generated) == limit:
             break
         t0 = time.perf_counter()
-        hidden = forward(cfg, params, embed_tokens(params, token), cache)
+        hidden = forward(cfg, params, embed_tokens(params, token), cache, tp)
         token = torch.argmax(logits_for(cfg, params, hidden[-1:])[-1]).reshape(1)
         token_id = int(token.item())
         if step_times is not None:

@@ -137,12 +137,13 @@ def encode_chunks_batch(
     return apply_linear(params["proj2"], x).to(dtype)
 
 
-def encode_chunks(cfg: AudioEncoderConfig, params: Dict, mel: torch.Tensor, valid_tokens: int, num_chunks: int) -> torch.Tensor:
+def encode_chunks(cfg: AudioEncoderConfig, params: Dict, mel: torch.Tensor, valid_tokens: int, num_chunks: int,
+                  tp=Replicated) -> torch.Tensor:
     """Single-stream :func:`encode_chunks_batch`: [num_chunks * tpc, output_dim]."""
-    return encode_chunks_batch(cfg, params, mel[None], [valid_tokens], num_chunks)[0]
+    return encode_chunks_batch(cfg, params, mel[None], [valid_tokens], num_chunks, tp)[0]
 
 
-def encode(cfg: AudioEncoderConfig, params: Dict, mel: torch.Tensor) -> Tuple[torch.Tensor, int]:
+def encode(cfg: AudioEncoderConfig, params: Dict, mel: torch.Tensor, tp=Replicated) -> Tuple[torch.Tensor, int]:
     """Pad ``mel`` ([frames, mels], or [B, frames, mels] with one frame count) to
     whole chunks, encode, and report the valid token count of ``frames``: every
     frame counts, a padded tail included."""
@@ -154,5 +155,5 @@ def encode(cfg: AudioEncoderConfig, params: Dict, mel: torch.Tensor) -> Tuple[to
     mel = F.pad(mel, (0, 0, 0, num_chunks * chunk - frames))
     full_chunks, tail = divmod(frames, chunk)
     valid = full_chunks * cfg.tokens_per_chunk + (conv_output_length(tail) if tail else 0)
-    out = encode_chunks_batch(cfg, params, mel, [valid] * mel.shape[0], num_chunks)
+    out = encode_chunks_batch(cfg, params, mel, [valid] * mel.shape[0], num_chunks, tp)
     return (out if batched else out[0]), valid

@@ -17,8 +17,16 @@ function) and one batched greedy decode, in chunks of ``max_decode_batch()``
 streams (a KV-memory bound). The reference's batch-size buckets and row-0
 padding exist only to bound XLA compiles and are not ported.
 
-The reference's load-overlapped shadow warmup and its device mesh work around
-XLA compile walls and the TPU relay; they are not ported.
+``Qwen3ASRModel(mesh=)`` serves on a (dp, tp) ``DeviceMesh``, one process a
+rank (``parallel.mesh``): each rank loads the artifact, keeps its Megatron
+shard of the decoder (and of the encoder where ``tp`` divides its heads) and
+its block of the KV heads (:meth:`Qwen3ASRModel.place_cache`), and the
+forwards sum the row-parallel outputs over ``tp`` (``decoder``'s module
+docstring). The logits head and the embedding stay whole on every rank, so
+every rank takes the same argmax and the greedy loops end together.
+
+The reference's load-overlapped shadow warmup works around XLA compile walls
+and the TPU relay; it is not ported.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from light_whisper_tpu_torch.audio import mel as wmel
 from light_whisper_tpu_torch.audio.mel import SAMPLE_RATE
 from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
 from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode, encode_chunks
-from light_whisper_tpu_torch.models.qwen3_asr.loader import Qwen3ASRWeights
+from light_whisper_tpu_torch.models.qwen3_asr.loader import Qwen3ASRWeights, _to_device
 
 PROMPT_BUCKET = 64
 _LANG_TOKEN = re.compile(r"^<\|([a-z]{2,3}(?:-[a-z]+)?)\|>$")
@@ -99,6 +107,17 @@ def max_decode_batch() -> int:
 
 
 @dataclasses.dataclass
+class BatchPlan:
+    """:meth:`Qwen3ASRModel.batch_plan`'s host layout of a batch."""
+
+    padded: np.ndarray  # [B, audio bucket]
+    true_samples: List[int]
+    ids: np.ndarray  # [B, prompt bucket] int64, pad-filled
+    prompt_lens: List[int]
+    capacity: int  # the KV capacity of every stream
+
+
+@dataclasses.dataclass
 class TranscriptionResult:
     text: str
     language: str
@@ -114,10 +133,10 @@ def _build_prompt_embeds(params: Dict, ids: torch.Tensor, audio_embeds: torch.Te
 
 
 def _prefill_batch(cfg, params: Dict, embeds: torch.Tensor, cache: dec.BatchKVCache,
-                   last_indices: Sequence[int]) -> torch.Tensor:
+                   last_indices: Sequence[int], tp=dec.Replicated) -> torch.Tensor:
     """Prefill ``embeds [B, T, D]`` into ``cache``; returns each stream's
     first greedy token (argmax at its row ``last_indices[b]``), on the device."""
-    hidden = dec.forward_prefill_batch(cfg, params, embeds, cache)
+    hidden = dec.forward_prefill_batch(cfg, params, embeds, cache, tp)
     rows = torch.as_tensor(list(last_indices), device=hidden.device)
     last = hidden[torch.arange(hidden.shape[0], device=hidden.device), rows]  # [B, D]
     return torch.argmax(dec.logits_for(cfg, params, last), dim=-1)
@@ -132,6 +151,7 @@ def _decode_greedy_batch(
     max_new_tokens: int,
     budgets: Optional[Sequence[int]] = None,
     step_times: Optional[List[float]] = None,
+    tp=dec.Replicated,
 ) -> np.ndarray:
     """Batched greedy decode: all streams step together until every one has
     emitted EOS or used its budget; a stream's token is recorded only while it
@@ -158,7 +178,7 @@ def _decode_greedy_batch(
         if count == max_new_tokens:
             break
         t0 = time.perf_counter()
-        hidden = dec.forward_decode_batch(cfg, params, dec.embed_tokens(params, current), cache)
+        hidden = dec.forward_decode_batch(cfg, params, dec.embed_tokens(params, current), cache, tp)
         current = torch.argmax(dec.logits_for(cfg, params, hidden), dim=-1)
         newly_done = current == eos_token_id
         if budgets is not None:
@@ -177,15 +197,49 @@ class Qwen3ASRModel:
         device="cuda",
         max_new_tokens: int = 448,
         precise: bool = False,
+        mesh=None,
     ) -> None:
-        """``precise=True``: dense f32 weights, f32 compute and f32 KV cache."""
-        self.device = resolve_device(device)
-        weights = Qwen3ASRWeights(gguf_path, device=self.device, precise=precise)
+        """``precise=True``: dense f32 weights, f32 compute and f32 KV cache.
+
+        ``mesh``: a (dp, tp) ``DeviceMesh`` from ``parallel.mesh.make_mesh``;
+        this process is one rank of it and computes on its device (``device``
+        is then not read). ``tp`` must divide the KV heads, as in the
+        reference. Each rank loads the artifact on the host and uploads its
+        shards only."""
+        self.mesh = mesh
+        # the widths this rank computes, and the seams of its forwards (the
+        # encoder's too, or Replicated where every rank keeps it whole)
+        self.tp = self.encoder_tp = dec.Replicated
+        if mesh is None:
+            self.device = resolve_device(device)
+            weights = Qwen3ASRWeights(gguf_path, device=self.device, precise=precise)
+            self.rank_config = weights.config
+            self.decoder_params, self.encoder_params = weights.decoder_params, weights.encoder_params
+        else:
+            from light_whisper_tpu_torch.parallel import mesh as pmesh
+            from light_whisper_tpu_torch.parallel import sharding
+
+            self.device = pmesh.mesh_device(mesh)
+            self._tp_rank = mesh.get_local_rank(pmesh.MODEL_AXIS)
+            self._tp_size = mesh[pmesh.MODEL_AXIS].size()
+            weights = Qwen3ASRWeights(gguf_path, device="cpu", precise=precise)  # host trees
+            self.rank_config, encoder_sharded = sharding.serving_config(weights.config, self._tp_size)
+            self.tp = sharding.TensorParallel(mesh)
+            decoder = sharding.shard_tree(weights.decoder_params, self._tp_rank, self._tp_size, weights.config.decoder)
+            encoder = weights.encoder_params
+            if encoder_sharded:
+                self.encoder_tp = self.tp
+                encoder = sharding.shard_tree(encoder, self._tp_rank, self._tp_size)
+            # only this rank's shards cross to the device
+            t0 = time.perf_counter()
+            self.decoder_params = _to_device(decoder, self.device)
+            self.encoder_params = _to_device(encoder, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            weights.load_timings["device_upload_s"] = round(time.perf_counter() - t0, 3)
         self.load_timings = dict(weights.load_timings)
         self.config: Qwen3ASRConfig = weights.config
         self.tokenizer = weights.tokenizer
-        self.decoder_params = weights.decoder_params
-        self.encoder_params = weights.encoder_params
         self.max_new_tokens = max_new_tokens
         self.cache_dtype = torch.float32 if precise else torch.bfloat16
         self.prefix_ids, self.suffix_ids = resolve_prompt_ids(
@@ -209,7 +263,19 @@ class Qwen3ASRModel:
         return capacity
 
     def _cache_for(self, needed: int) -> dec.KVCache:
-        return dec.init_cache(self.config.decoder, self._capacity_for(needed), self.cache_dtype, self.device)
+        return self.place_cache(dec.init_cache(self.config.decoder, self._capacity_for(needed), self.cache_dtype,
+                                               self.device))
+
+    def place_cache(self, cache):
+        """A fresh cache (``KVCache`` or ``BatchKVCache`` of every KV head) as
+        this rank keeps it: its block of the KV heads under a mesh (the
+        reference's ``P(None, "tp", None, None)``), the cache itself without.
+        The one placing site of every cache owner, the sessions' included."""
+        if self.mesh is None:
+            return cache
+        from light_whisper_tpu_torch.parallel.sharding import shard_cache
+
+        return shard_cache(cache, self._tp_rank, self._tp_size)
 
     def _prepare(self, audio: np.ndarray):
         """Host-side request layout: ``(padded audio, n_audio, padded prompt ids,
@@ -237,12 +303,13 @@ class Qwen3ASRModel:
         mel, clip_max = wmel.log_mel_with_max(waveform, mel_frames)
         chunk = self.config.audio.chunk_frames
         mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * chunk - mel.shape[0]))
-        audio_embeds = encode_chunks(self.config.audio, self.encoder_params, mel, n_audio, num_chunks)
+        audio_embeds = encode_chunks(self.rank_config.audio, self.encoder_params, mel, n_audio, num_chunks,
+                                     self.encoder_tp)
         dtype = dec.torch_dtype(self.config.decoder.compute_dtype)
         ids = torch.from_numpy(ids_padded).to(self.device)
         embeds = _build_prompt_embeds(self.decoder_params, ids, audio_embeds, n_audio,
                                       len(self.prefix_ids), dtype)
-        hidden = dec.forward(self.config.decoder, self.decoder_params, embeds, cache)
+        hidden = dec.forward(self.rank_config.decoder, self.decoder_params, embeds, cache, self.tp)
         # the padded tail wrote K/V at positions >= true_len; decode overwrites
         # them before reading (causal masking keeps positions < true_len exact)
         cache.pos = true_len
@@ -257,13 +324,14 @@ class Qwen3ASRModel:
         logits, _clip_max = self._encode_and_prefill(*request, cache)
         self.last_decode_step_s = []
         generated = dec.decode_greedy(
-            self.config.decoder,
+            self.rank_config.decoder,
             self.decoder_params,
             torch.argmax(logits),
             cache,
             self.config.eos_token_id,
             self.max_new_tokens,
             step_times=self.last_decode_step_s,
+            tp=self.tp,
         )
         return self._parse_output(generated)
 
@@ -280,6 +348,14 @@ class Qwen3ASRModel:
             return []
         if len(audios) == 1:
             return [self.transcribe(audios[0])]
+        plan = self.batch_plan(audios)
+        self.last_decode_step_s = []
+        tokens = self.decode_rows(plan, 0, len(audios))
+        return [self._parse_output([int(t) for t in row if t >= 0]) for row in tokens]
+
+    def batch_plan(self, audios: Sequence[np.ndarray]) -> BatchPlan:
+        """The host layout of a batch: every clip padded to the longest one's
+        audio bucket, every prompt to one 64-token bucket, one KV capacity."""
         audios = [as_device_audio(np.asarray(a).reshape(-1)) for a in audios]
         if any(a.dtype != np.int16 for a in audios):
             # one array for all clips: int16 ones scale as the mel front end would (exact)
@@ -288,40 +364,45 @@ class Qwen3ASRModel:
         padded = np.zeros((len(audios), bucket), dtype=audios[0].dtype)
         for row, audio in enumerate(audios):
             padded[row, : len(audio)] = audio
-        audio_embeds, n_audio = self._encode_padded(padded, [len(a) for a in audios])
-
-        prompts = [self._prompt_ids(n) for n in n_audio]
+        true_samples = [len(a) for a in audios]
+        prompts = [self._prompt_ids(self._audio_tokens_for(n)) for n in true_samples]
         prompt_lens = [len(p) for p in prompts]
         bucket_len = _round_up(max(prompt_lens), PROMPT_BUCKET)
-        capacity = self._capacity_for(bucket_len + self.max_new_tokens)
         ids = np.full((len(audios), bucket_len), self.config.pad_token_id, dtype=np.int64)
         for row, prompt in enumerate(prompts):
             ids[row, : len(prompt)] = prompt
-        ids = torch.from_numpy(ids).to(self.device)
+        return BatchPlan(padded, true_samples, ids, prompt_lens, self._capacity_for(bucket_len + self.max_new_tokens))
+
+    def decode_rows(self, plan: BatchPlan, lo: int, hi: int) -> np.ndarray:
+        """Greedy tokens of the plan's streams ``lo..hi`` (``[hi - lo,
+        max_new_tokens]``, ``-1`` past each stream's end): encoded in one pass,
+        then prefilled and decoded together, ``max_decode_batch()`` at a time.
+        A stream's row does not depend on which others share its call."""
+        audio_embeds, n_audio = self._encode_padded(plan.padded[lo:hi], plan.true_samples[lo:hi])
+        ids = torch.from_numpy(plan.ids[lo:hi]).to(self.device)
         compute = dec.torch_dtype(self.config.decoder.compute_dtype)
         embeds = torch.stack([
             _build_prompt_embeds(self.decoder_params, ids[row], audio_embeds[row], n_audio[row],
                                  len(self.prefix_ids), compute)
-            for row in range(len(audios))
+            for row in range(hi - lo)
         ])
-
-        self.last_decode_step_s = []
-        results: List[TranscriptionResult] = []
+        prompt_lens = plan.prompt_lens[lo:hi]
+        out = []
         max_b = max_decode_batch()
-        for c0 in range(0, len(audios), max_b):
+        for c0 in range(0, hi - lo, max_b):
             rows = slice(c0, c0 + max_b)
             lens = prompt_lens[rows]
-            cache = dec.init_cache_batch(self.config.decoder, len(lens), capacity, self.cache_dtype, self.device)
-            firsts = _prefill_batch(self.config.decoder, self.decoder_params, embeds[rows], cache,
-                                    [n - 1 for n in lens])
+            cache = self.place_cache(dec.init_cache_batch(self.config.decoder, len(lens), plan.capacity,
+                                                          self.cache_dtype, self.device))
+            firsts = _prefill_batch(self.rank_config.decoder, self.decoder_params, embeds[rows], cache,
+                                    [n - 1 for n in lens], self.tp)
             # the padded tails wrote K/V past each stream's prompt; decode
             # overwrites them one position at a time before any read
             cache.set_positions(lens)
-            tokens = _decode_greedy_batch(self.config.decoder, self.decoder_params, firsts, cache,
-                                          self.config.eos_token_id, self.max_new_tokens,
-                                          step_times=self.last_decode_step_s)
-            results += [self._parse_output([int(t) for t in row if t >= 0]) for row in tokens]
-        return results
+            out.append(_decode_greedy_batch(self.rank_config.decoder, self.decoder_params, firsts, cache,
+                                            self.config.eos_token_id, self.max_new_tokens,
+                                            step_times=self.last_decode_step_s, tp=self.tp))
+        return np.concatenate(out) if out else np.full((0, self.max_new_tokens), -1, np.int64)
 
     def _encode_padded(self, padded: np.ndarray, true_samples: Sequence[int]):
         """Encode clips already padded to one bucket (``[B, bucket]``) in one
@@ -329,7 +410,7 @@ class Qwen3ASRModel:
         valid-token count, not the clip's own (``transcribe`` uses the clip's);
         returns ``(embeds [B, tokens, D], each clip's own audio-token count)``."""
         mel = wmel.log_mel(torch.from_numpy(padded).to(self.device))
-        embeds, _valid = encode(self.config.audio, self.encoder_params, mel)
+        embeds, _valid = encode(self.rank_config.audio, self.encoder_params, mel, self.encoder_tp)
         return embeds, [self._audio_tokens_for(n) for n in true_samples]
 
     @torch.no_grad()
@@ -342,8 +423,8 @@ class Qwen3ASRModel:
         rows = [self._encode_and_prefill(*request, cache)[0]]
         for tok in tokens:
             ids = torch.tensor([tok], device=self.device)
-            hidden = dec.forward(self.config.decoder, self.decoder_params,
-                                 dec.embed_tokens(self.decoder_params, ids), cache)
+            hidden = dec.forward(self.rank_config.decoder, self.decoder_params,
+                                 dec.embed_tokens(self.decoder_params, ids), cache, self.tp)
             rows.append(dec.logits_for(self.config.decoder, self.decoder_params, hidden)[0])
         return [r.float().cpu() for r in rows]
 

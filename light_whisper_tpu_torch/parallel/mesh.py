@@ -63,22 +63,30 @@ def mesh_shape(dp: Optional[int], tp: Optional[int], n: int) -> Tuple[int, int]:
     return dp, tp
 
 
+def grid_mesh(shape: Tuple[int, int], names: Tuple[str, str], device_type: str = "cuda") -> DeviceMesh:
+    """A 2-D mesh of ``shape`` over the process group's ranks in row-major
+    order, its dimensions named ``names``. The default process group must be
+    initialised (:func:`init_distributed`) on the backend of ``device_type``,
+    and hold ``shape``'s ranks."""
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs the default process group: call init_distributed first")
+    expected = backend_for(device_type)
+    if dist.get_backend() != expected:
+        raise ValueError(f"a {device_type} mesh needs the {expected} backend, not {dist.get_backend()}")
+    grid = torch.arange(shape[0] * shape[1]).reshape(shape)
+    return DeviceMesh(device_type, grid, mesh_dim_names=names)
+
+
 def make_mesh(dp: Optional[int] = None, tp: Optional[int] = None, devices: Optional[int] = None,
               device_type: str = "cuda") -> DeviceMesh:
     """A (dp, tp) mesh over ``devices`` ranks (default: the process group's
     world size), rank ``r`` at ``(r // tp, r % tp)``: the tp ranks of a data
-    shard are neighbours, as in the reference's row-major grid. The default
-    process group must be initialised (:func:`init_distributed`) on the
-    backend of ``device_type``."""
+    shard are neighbours, as in the reference's row-major grid
+    (:func:`grid_mesh`)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the default process group: call init_distributed first")
-    expected = backend_for(device_type)
-    if dist.get_backend() != expected:
-        raise ValueError(f"a {device_type} mesh needs the {expected} backend, not {dist.get_backend()}")
     n = dist.get_world_size() if devices is None else devices
-    dp, tp = mesh_shape(dp, tp, n)
-    grid = torch.arange(n).reshape(dp, tp)
-    return DeviceMesh(device_type, grid, mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    return grid_mesh(mesh_shape(dp, tp, n), (DATA_AXIS, MODEL_AXIS), device_type)
 
 
 def mesh_device(mesh: Optional[DeviceMesh], device="cuda") -> torch.device:

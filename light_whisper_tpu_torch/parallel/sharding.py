@@ -18,6 +18,18 @@ head of each column-parallel block. The per-head q and k norms are
 replicated but see only a rank's heads, so their gradients are summed over
 ``tp`` after the backward (:func:`head_local_leaves`).
 
+Serving (``Qwen3ASRModel(mesh=)``) shards the loader's trees, Q8_0 ones
+included, with the same cut. :func:`param_specs` keeps the reference's rule
+word for word, which names a Q8 leaf ``o/q`` by its key ``q`` and so gives it
+q's out-feature spec: GSPMD computes the same function whatever the layout,
+but written-out collectives need each leaf cut along the axis its linear
+contracts or emits. So :func:`shard_tree` reads a leaf's spec from the linear
+that holds it (:func:`_layout_spec`). The serving widths are
+:func:`serving_config`'s, which checks what the reference's model checks (the
+KV heads) and keeps an encoder whose heads ``tp`` does not divide replicated;
+:func:`shard_cache` is the reference's ``place_cache`` layout,
+``[L, Hkv/tp, C, hd]``.
+
 Orientation (``ops.linear``): dense ``w`` is ``[in, out]``, Q8_0 ``q`` is
 ``[out, in]`` with scales ``[out, in/32]``; stacked layer leaves carry a
 leading layer axis.
@@ -36,6 +48,8 @@ from light_whisper_tpu_torch.parallel.mesh import MODEL_AXIS
 
 _OUT_SHARDED = {"q", "k", "v", "qkv", "gate", "up", "gateup", "fc1"}
 _IN_SHARDED = {"o", "down", "fc2"}
+_LINEAR_KEYS = ("w", "q", "s", "b")
+Q8_BLOCK = 32  # in-features a Q8_0 scale covers
 
 
 def _spec_for_linear(name: str, key: str, stacked: bool) -> Tuple:
@@ -57,15 +71,23 @@ def _spec_for_linear(name: str, key: str, stacked: bool) -> Tuple:
     return ()
 
 
-def _spec(names: Sequence[str]) -> Tuple[Tuple, Optional[str]]:
-    """(spec, name of the linear that holds the leaf) at ``names``. The spec
-    takes the nearest name of a linear, as the reference's does (for a Q8
-    leaf ``qkv/q`` that is the key ``q``: the same spec as ``qkv``'s)."""
+def _spec(names: Sequence[str]) -> Tuple:
+    """The reference's spec of the leaf at ``names``: that of the nearest
+    name of a linear (for a Q8 leaf ``qkv/q`` that is the key ``q``: the same
+    spec as ``qkv``'s; for ``o/q`` too, see :func:`_layout_spec`)."""
     stacked = "layers" in names
     for name in reversed(names):
         if name in _OUT_SHARDED or name in _IN_SHARDED:
-            owner = names[-2] if len(names) > 1 else name
-            return _spec_for_linear(name, names[-1], stacked), owner
+            return _spec_for_linear(name, names[-1], stacked)
+    return ()
+
+
+def _layout_spec(names: Sequence[str]) -> Tuple[Tuple, Optional[str]]:
+    """(spec, linear) of the leaf at ``names`` by the linear that holds it:
+    ``o/q`` is cut along o's in-features, ``embed/q`` not at all. The same
+    as :func:`_spec` on every dense tree."""
+    if len(names) >= 2 and names[-1] in _LINEAR_KEYS and names[-2] in _OUT_SHARDED | _IN_SHARDED:
+        return _spec_for_linear(names[-2], names[-1], "layers" in names), names[-2]
     return (), None
 
 
@@ -78,7 +100,7 @@ def _walk(tree, fn, names=()):
 def param_specs(params: Dict[str, Any]) -> Dict[str, Any]:
     """The spec tree of a decoder or encoder parameter tree: per leaf, a tuple
     with ``"tp"`` on the sharded dimension (``()`` when replicated)."""
-    return _walk(params, lambda names, _leaf: _spec(names)[0])
+    return _walk(params, lambda names, _leaf: _spec(names))
 
 
 def local_config(cfg: Qwen3ASRConfig, tp: int) -> Qwen3ASRConfig:
@@ -101,6 +123,44 @@ def local_config(cfg: Qwen3ASRConfig, tp: int) -> Qwen3ASRConfig:
     )
 
 
+def serving_config(cfg: Qwen3ASRConfig, tp: int) -> Tuple[Qwen3ASRConfig, bool]:
+    """``(the widths one of tp serving ranks computes, whether the encoder is
+    sharded)``. The decoder is always sharded: ``tp`` must divide its KV heads
+    (the reference's ``Qwen3ASRModel(mesh=)`` check, with its message), and so
+    its query heads, and its FFN width. The encoder is sharded only where
+    ``tp`` divides its heads and FFN width; elsewhere every rank keeps it
+    whole, which computes the same function (the reference's GSPMD splits
+    its columns through a head there: 14 heads of the 0.6B and 1.7B encoders
+    over tp=4)."""
+    d, a = cfg.decoder, cfg.audio
+    if d.head_count_kv % tp:
+        raise ValueError(f"tp={tp} must divide kv heads {d.head_count_kv}")
+    if d.feed_forward_length % tp:
+        raise ValueError(f"tp={tp} must divide the decoder FFN width ({d.feed_forward_length})")
+    decoder = dataclasses.replace(d, head_count=d.head_count // tp, head_count_kv=d.head_count_kv // tp,
+                                  feed_forward_length=d.feed_forward_length // tp)
+    encoder_sharded = a.head_count % tp == 0 and a.feed_forward_length % tp == 0
+    audio = a if not encoder_sharded else dataclasses.replace(
+        a, head_count=a.head_count // tp, feed_forward_length=a.feed_forward_length // tp)
+    return dataclasses.replace(cfg, decoder=decoder, audio=audio), encoder_sharded
+
+
+def shard_cache(cache, index: int, count: int):
+    """Rank ``index`` of ``count``'s block of the KV heads of a cache: a
+    ``KVCache`` ``[L, Hkv, C, hd]`` or a ``BatchKVCache`` ``[B, L, Hkv, C,
+    hd]`` (the reference's ``P(None, "tp", None, None)``). Positions are
+    kept."""
+    if count == 1:
+        return cache
+    dim = cache.k.dim() - 3
+    heads = cache.k.shape[dim]
+    if heads % count:
+        raise ValueError(f"a cache of {heads} KV heads does not split over tp={count}")
+    n = heads // count
+    return dataclasses.replace(cache, k=cache.k.narrow(dim, index * n, n).contiguous(),
+                               v=cache.v.narrow(dim, index * n, n).contiguous())
+
+
 def _blocks(name: str, size: int, dim_is_out: bool, cfg: Optional[DecoderConfig]) -> List[int]:
     """The parts of a sharded dimension that are split apart: q|k|v of the
     fused qkv's out-features, gate|up of gateup's, else the whole dimension."""
@@ -121,7 +181,7 @@ def _blocks(name: str, size: int, dim_is_out: bool, cfg: Optional[DecoderConfig]
 def _leaf_layout(names, leaf, cfg, count: int = 1):
     """(sharded dimension, its parts' whole widths) of a leaf, or None when
     replicated; ``count``: the number of slices ``leaf`` is one of."""
-    spec, name = _spec(names)
+    spec, name = _layout_spec(names)
     if MODEL_AXIS not in spec:
         return None
     dim = spec.index(MODEL_AXIS)
@@ -139,6 +199,12 @@ def shard_tree(params: Dict[str, Any], index: int, count: int, cfg: Optional[Dec
         if layout is None or count == 1:
             return leaf
         dim, blocks = layout
+        if names[-1] in ("q", "s") and dim == leaf.dim() - 1:
+            # a Q8_0 linear cut along its in-features: each rank's slice holds whole 32-wide blocks
+            blocks_in = leaf.shape[dim] // (Q8_BLOCK if names[-1] == "q" else 1)
+            if blocks_in % count:
+                raise ValueError(f"{'/'.join(names)}: {blocks_in} Q8_0 blocks of 32 in-features do not split "
+                                 f"over tp={count}: in/tp must be a multiple of 32")
         pieces, start = [], 0
         for size in blocks:
             if size % count:

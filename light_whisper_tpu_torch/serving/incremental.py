@@ -35,6 +35,11 @@ in the reference. The reference's device-resident audio buffer
 ported: the window is copied to the device once a tick; ``warmup_ladder``
 precompiles XLA programs and is not ported either.
 
+On a tensor-parallel model (``Qwen3ASRModel(mesh=)``) the session's cache is
+placed by ``model.place_cache`` and every forward takes the model's rank
+widths and seams (``model.rank_config``, ``model.tp``, ``model.encoder_tp``);
+every rank then runs the same tick, and nothing else here changes.
+
 Paths compute the same function in different reduction orders, so a greedy
 argmax may flip where the top-2 logits lie within ~1e-3 (the repo's tie band).
 """
@@ -115,9 +120,10 @@ def _encode_prefill_segment(model: Qwen3ASRModel, padded: np.ndarray, n_audio: i
     waveform = torch.from_numpy(padded).to(model.device)
     mel, clip_max = wmel.log_mel_with_max(waveform, mel_frames)
     mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * cfg.audio.chunk_frames - mel.shape[0]))
-    audio_embeds = encode_chunks(cfg.audio, model.encoder_params, mel, n_audio, num_chunks)
+    audio_embeds = encode_chunks(model.rank_config.audio, model.encoder_params, mel, n_audio, num_chunks,
+                                 model.encoder_tp)
     embeds = _segment_embeds(model, audio_embeds, n_audio, stable, draft, seg_bucket)
-    hidden = dec.forward(cfg.decoder, model.decoder_params, embeds, cache)
+    hidden = dec.forward(model.rank_config.decoder, model.decoder_params, embeds, cache, model.tp)
     preds = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, hidden), dim=-1)
     first_index = (n_audio - stable) + len(model.suffix_ids) - 1
     window = preds[first_index : first_index + DRAFT_TOKENS + 1].cpu().tolist()
@@ -155,8 +161,11 @@ class IncrementalTranscriber:
     def _ensure_cache(self, needed: int) -> None:
         capacity = cache_capacity_for(needed)
         if self._cache is None or self._cache_capacity < capacity:
-            self._cache = dec.init_cache(self.model.config.decoder, capacity, self.model.cache_dtype,
-                                         self.model.device)
+            cache = dec.init_cache(self.model.config.decoder, capacity, self.model.cache_dtype, self.model.device)
+            # a tensor-parallel model keeps its block of the KV heads (no-op on
+            # one device or on a stand-in model without the method)
+            place = getattr(self.model, "place_cache", None)
+            self._cache = place(cache) if place is not None else cache
             self._cache_capacity = capacity
             self._stable_tokens = -1  # force a full prefill
 
@@ -203,9 +212,9 @@ class IncrementalTranscriber:
                 accepted = accept_draft(preds, draft)
                 cache.pos = true_len + accepted
                 first = torch.tensor(preds[accepted], device=model.device)
-                tail = dec.decode_greedy(cfg.decoder, model.decoder_params, first, cache, cfg.eos_token_id,
-                                         self.max_new_tokens, step_times=self.last_decode_step_s,
-                                         budget=self.max_new_tokens - accepted)
+                tail = dec.decode_greedy(model.rank_config.decoder, model.decoder_params, first, cache,
+                                         cfg.eos_token_id, self.max_new_tokens, step_times=self.last_decode_step_s,
+                                         budget=self.max_new_tokens - accepted, tp=model.tp)
                 self.incremental_prefills += 1
                 self.draft_tokens_offered += len(draft)
                 self.draft_tokens_accepted += accepted
@@ -219,8 +228,9 @@ class IncrementalTranscriber:
         ids[:true_len] = model._prompt_ids(n_audio)
         cache.pos = 0
         logits, clip_max = model._encode_and_prefill(padded, n_audio, ids, true_len, mel_frames, num_chunks, cache)
-        generated = dec.decode_greedy(cfg.decoder, model.decoder_params, torch.argmax(logits), cache,
-                                      cfg.eos_token_id, self.max_new_tokens, step_times=self.last_decode_step_s)
+        generated = dec.decode_greedy(model.rank_config.decoder, model.decoder_params, torch.argmax(logits), cache,
+                                      cfg.eos_token_id, self.max_new_tokens, step_times=self.last_decode_step_s,
+                                      tp=model.tp)
         self.full_prefills += 1
         self._window_start = window_start_sample
         # anchored at full prefills only: every cached row was computed at this

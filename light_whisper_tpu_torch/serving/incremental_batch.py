@@ -174,7 +174,8 @@ def _encode_batch(model, waveforms: np.ndarray, n_audio: List[int], mel_frames: 
     cfg = model.config
     mel, clip_max = wmel.log_mel_with_max(torch.from_numpy(waveforms).to(model.device), mel_frames)
     mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * cfg.audio.chunk_frames - mel.shape[1]))
-    return encode_chunks_batch(cfg.audio, model.encoder_params, mel, n_audio, num_chunks), clip_max
+    return (encode_chunks_batch(model.rank_config.audio, model.encoder_params, mel, n_audio, num_chunks,
+                                model.encoder_tp), clip_max)
 
 
 def _run_group_fresh(plans: List[_TickPlan]):
@@ -196,15 +197,16 @@ def _run_group_fresh(plans: List[_TickPlan]):
     for b, p in enumerate(plans):
         embeds[b, prefix_len : prefix_len + p.n_audio] = audio_embeds[b, : p.n_audio].to(dtype)
 
-    caches = dec.init_cache_batch(cfg.decoder, len(plans), capacity, model.cache_dtype, model.device)
-    hidden = dec.forward_prefill_batch(cfg.decoder, model.decoder_params, embeds, caches)
+    caches = model.place_cache(dec.init_cache_batch(cfg.decoder, len(plans), capacity, model.cache_dtype,
+                                                    model.device))
+    hidden = dec.forward_prefill_batch(model.rank_config.decoder, model.decoder_params, embeds, caches, model.tp)
     last = hidden[torch.arange(len(plans), device=hidden.device),
                   torch.tensor([p.true_len - 1 for p in plans], device=hidden.device)]
     first = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, last), dim=-1)
     caches.set_positions([p.true_len for p in plans])
     step_times: List[float] = []
-    tokens = _decode_greedy_batch(cfg.decoder, model.decoder_params, first, caches, cfg.eos_token_id, max_new,
-                                  step_times=step_times)
+    tokens = _decode_greedy_batch(model.rank_config.decoder, model.decoder_params, first, caches, cfg.eos_token_id,
+                                  max_new, step_times=step_times, tp=model.tp)
     clip_np = clip_dev.cpu().numpy()
 
     # parse first (fallible), then apply session state (assignments only)
@@ -254,7 +256,7 @@ def _run_group(plans: List[_TickPlan]):
                               v=torch.stack([p.transcriber._cache.v for p in plans]),
                               pos=torch.zeros(0), pos_host=[])
     caches.set_positions([prefix_len + p.stable for p in plans])
-    hidden = dec.forward_prefill_batch(cfg.decoder, model.decoder_params, embeds, caches)
+    hidden = dec.forward_prefill_batch(model.rank_config.decoder, model.decoder_params, embeds, caches, model.tp)
     # verify each stream's draft on the DRAFT_TOKENS + 1 rows from the one
     # that predicts its first token: the logits head sees only those rows
     first_index = torch.tensor([(p.n_audio - p.stable) + len(model.suffix_ids) - 1 for p in plans],
@@ -268,8 +270,9 @@ def _run_group(plans: List[_TickPlan]):
     first = torch.as_tensor(preds_np[np.arange(len(plans)), accepted], device=model.device)
     caches.set_positions([p.true_len + a for p, a in zip(plans, accepted)])
     step_times: List[float] = []
-    tokens = _decode_greedy_batch(cfg.decoder, model.decoder_params, first, caches, cfg.eos_token_id, max_new,
-                                  budgets=[max_new - a for a in accepted], step_times=step_times)
+    tokens = _decode_greedy_batch(model.rank_config.decoder, model.decoder_params, first, caches, cfg.eos_token_id,
+                                  max_new, budgets=[max_new - a for a in accepted], step_times=step_times,
+                                  tp=model.tp)
 
     # parse every stream's outcome without touching session state (a raise
     # here leaves all sessions intact), then apply the state

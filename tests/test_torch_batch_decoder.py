@@ -222,7 +222,7 @@ def _stub_decoders(monkeypatch, schedule):
     def ref_logits(cfg_, params_, hidden):
         return jax.nn.one_hot(sched[jnp.clip(hidden[0, 0], 0, steps - 1)], CFG.vocab_size, dtype=jnp.float32)
 
-    def port_forward(cfg_, params_, x, cache):
+    def port_forward(cfg_, params_, x, cache, tp=None):
         step = cache.pos_host[0] - POS0
         cache.advance(1)
         return torch.full((x.shape[0], 1), step)

@@ -186,6 +186,45 @@ def test_interim_tick_and_pooled_request_without_importing_jax(tiny_gguf):
     assert result["reference"] == []
 
 
+MESH_SCRIPT = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+import torch.distributed as dist
+from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
+from light_whisper_tpu_torch.parallel import dryrun, encoder_sp, mesh, pipeline, sharding
+from light_whisper_tpu_torch.models.qwen3_asr import synthetic
+path = sys.argv[1]
+with tempfile.TemporaryDirectory() as d:
+    mesh.init_distributed("cpu", 0, 1, store=dist.FileStore(os.path.join(d, "store"), 1), timeout_s=60)
+    try:
+        m = mesh.make_mesh(1, 1, device_type="cpu")
+        model = Qwen3ASRModel(path, max_new_tokens=4, mesh=m)
+        audio = (np.random.default_rng(0).standard_normal(8000) * 0.3).astype(np.float32)
+        tokens = [r.tokens for r in dryrun.transcribe_batch_dp(model, [audio, audio[:6000]], m)]
+    finally:
+        dist.destroy_process_group()
+print(json.dumps({"tokens": tokens,
+                  "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")),
+                  "reference": sorted(m for m in sys.modules
+                                      if m.split(".")[0] in ("light_whisper_tpu", "__graft_entry__", "helpers"))}))
+"""
+
+
+def test_multi_device_modules_without_importing_jax(tiny_gguf):
+    """The multi-device modules (``parallel/encoder_sp.py``, ``pipeline.py``,
+    ``dryrun.py``, ``sharding.py``, ``models/qwen3_asr/synthetic.py``)
+    imported, and a dp1 x tp1 model serving a dp-split batch over a
+    one-rank gloo group, then the module list."""
+    proc = subprocess.run([sys.executable, "-c", MESH_SCRIPT, tiny_gguf], capture_output=True, text=True,
+                          env=_env(), cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(result["tokens"]) == 2 and all(len(t) >= 1 for t in result["tokens"])
+    assert result["modules"] == []
+    assert result["reference"] == []
+
+
 def test_engine_cli_without_a_gpu_fails_loudly(tiny_gguf):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")

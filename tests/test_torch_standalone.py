@@ -65,6 +65,17 @@ def test_the_scan_covers_the_session_modules(module):
     assert {name.split(".")[0] for name, _line in _imports(path)} & set(FORBIDDEN) == set()
 
 
+MULTI_DEVICE_MODULES = ("parallel/encoder_sp.py", "parallel/pipeline.py", "parallel/dryrun.py",
+                        "parallel/sharding.py", "models/qwen3_asr/synthetic.py")
+
+
+@pytest.mark.parametrize("module", MULTI_DEVICE_MODULES)
+def test_the_scan_covers_the_multi_device_modules(module):
+    path = REPO / "light_whisper_tpu_torch" / module
+    assert path in _port_sources()
+    assert {name.split(".")[0] for name, _line in _imports(path)} & set(FORBIDDEN) == set()
+
+
 def test_the_scan_sees_every_import_form(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import light_whisper_tpu.audio\nfrom light_whisper_tpu import x\n"
@@ -308,14 +319,17 @@ def test_speechlike_bit_for_bit(seconds, seed):
 
 
 def test_chip_smoke_builds_the_reference_artifact_bytes(tmp_path):
-    """``chip_smoke.py`` keeps its own 0.6B widths and random-tensor builder:
-    the same widths as ``__graft_entry__._flagship_config("0.6b")``, and at a
-    tiny width the same GGUF bytes from a seed as ``tests/helpers`` through the
-    reference's export (the 0.6B file is ~1 GB; the draw code is shared)."""
+    """``chip_smoke.py`` builds its artifacts with the port's own 0.6B widths
+    and random-tensor builder (``models/qwen3_asr/synthetic.py``, which the
+    multi-device dry run shares): the same widths as
+    ``__graft_entry__._flagship_config("0.6b")``, and at a tiny width the same
+    GGUF bytes from a seed as ``tests/helpers`` through the reference's export
+    (the 0.6B file is ~1 GB; the draw code is shared)."""
     import importlib.util
 
     import __graft_entry__ as graft
     from light_whisper_tpu.models.qwen3_asr.export import write_model as ref_write
+    from light_whisper_tpu_torch.models.qwen3_asr import synthetic
 
     spec = importlib.util.spec_from_file_location("chip_smoke_under_test", REPO / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
@@ -324,13 +338,13 @@ def test_chip_smoke_builds_the_reference_artifact_bytes(tmp_path):
 
     cfg = tiny_config()
     port_cfg = _port_config(cfg)
-    tensors = chip_smoke.random_tensors(port_cfg, seed=5)
+    tensors = synthetic.random_tensors(port_cfg, seed=5)
     reference = tiny_tensors(cfg, seed=5)
     assert list(tensors) == list(reference)
     assert all(np.array_equal(tensors[k], reference[k]) for k in tensors)
     chip_smoke.write_model(str(tmp_path / "port.gguf"), port_cfg, seed=5)
-    tokens, types = chip_smoke._vocab(port_cfg)
+    tokens, types = synthetic.vocab(port_cfg)
     meta = {"tokenizer.ggml.tokens": tokens, "tokenizer.ggml.token_type": types, "tokenizer.ggml.merges": [],
-            "tokenizer.chat_template": chip_smoke.TEMPLATE}
+            "tokenizer.chat_template": synthetic.TEMPLATE}
     ref_write(str(tmp_path / "ref.gguf"), cfg, reference, meta, quantize=True)
     assert (tmp_path / "port.gguf").read_bytes() == (tmp_path / "ref.gguf").read_bytes()
