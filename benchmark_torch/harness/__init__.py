@@ -1,0 +1,7 @@
+"""The PyTorch/CUDA port's benchmark harness (``python3 benchmark_torch/run.py``).
+
+Everything that measures lives here, apart from the program: traffic from a
+seed, the Q8_0 artifact writer, the wire client, the work and roofline
+arithmetic, the trace reduction and the plain float32 reference that decides
+``correct``. Nothing here imports JAX or the JAX package.
+"""
