@@ -60,7 +60,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -85,6 +84,7 @@ from light_whisper_tpu_torch.ops.q8_matmul import (
     q8_matmul_stacked_fused,
     rms_norm,
 )
+from light_whisper_tpu_torch.runtime import tracing
 
 _PROJ_NAMES = ("qkv", "o", "gateup", "down")
 # From this capacity on, prefill attention runs an online softmax over key
@@ -164,7 +164,8 @@ def init_cache_batch(cfg: DecoderConfig, batch: int, capacity: int, dtype=torch.
 
 def rope_tables(positions: torch.Tensor, head_dim: int, base: float) -> Tuple[torch.Tensor, torch.Tensor]:
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32, device=positions.device), exponent)
+    # a Python base: a device tensor of it would be an upload, and a sync, every forward
+    inv_freq = 1.0 / torch.pow(float(base), exponent)
     angles = positions.float()[:, None] * inv_freq[None, :]  # [T, hd/2]
     cos = torch.cat([torch.cos(angles)] * 2, dim=-1)
     sin = torch.cat([torch.sin(angles)] * 2, dim=-1)
@@ -561,8 +562,9 @@ def decode_greedy(
     ``budget`` where that is smaller (the speculative tick passes
     ``max_new_tokens`` less its accepted draft; the reference's on-device loop
     records the same ids; its final step, whose token is never recorded, is
-    skipped). ``step_times`` collects the host wall of each step,
-    synchronised by the EOS check."""
+    skipped). Each step is a ``model.decode.step`` span, closed by its one
+    sync, the EOS check's ``token.item()`` (``model.decode.sync``);
+    ``step_times`` collects the steps' walls."""
     limit = max_new_tokens if budget is None else min(max_new_tokens, int(budget))
     generated: List[int] = []
     token = first_token.reshape(1)
@@ -571,10 +573,11 @@ def decode_greedy(
         generated.append(token_id)
         if len(generated) == limit:
             break
-        t0 = time.perf_counter()
-        hidden = forward(cfg, params, embed_tokens(params, token), cache, tp)
-        token = torch.argmax(logits_for(cfg, params, hidden[-1:])[-1]).reshape(1)
-        token_id = int(token.item())
+        with tracing.span("model.decode.step") as step:
+            hidden = forward(cfg, params, embed_tokens(params, token), cache, tp)
+            token = torch.argmax(logits_for(cfg, params, hidden[-1:])[-1]).reshape(1)
+            with tracing.span("model.decode.sync"):
+                token_id = int(token.item())
         if step_times is not None:
-            step_times.append(time.perf_counter() - t0)
+            step_times.append(step.seconds)
     return generated

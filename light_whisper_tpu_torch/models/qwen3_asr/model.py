@@ -25,6 +25,15 @@ forwards sum the row-parallel outputs over ``tp`` (``decoder``'s module
 docstring). The logits head and the embedding stay whole on every rank, so
 every rank takes the same argmax and the greedy loops end together.
 
+Every path times its work in three host spans (``runtime/tracing.py``):
+``model.encode`` (the host's dispatch of log-mel and encoder),
+``model.prefill`` (the host's dispatch of prompt embeds, decoder prefill and
+first logits; neither adds a sync, so the device's encode and prefill time
+is waited for at the first token's read, before the first step) and
+``model.decode.step`` (one decode step, closed by its one sync,
+``model.decode.sync``, the host waiting for the device). A step's wall is
+also its entry in ``last_decode_step_s``.
+
 The reference's load-overlapped shadow warmup works around XLA compile walls
 and the TPU relay; it is not ported.
 """
@@ -47,6 +56,7 @@ from light_whisper_tpu_torch.audio.mel import SAMPLE_RATE
 from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
 from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode, encode_chunks
 from light_whisper_tpu_torch.models.qwen3_asr.loader import Qwen3ASRWeights, _to_device
+from light_whisper_tpu_torch.runtime import tracing
 
 PROMPT_BUCKET = 64
 _LANG_TOKEN = re.compile(r"^<\|([a-z]{2,3}(?:-[a-z]+)?)\|>$")
@@ -159,9 +169,9 @@ def _decode_greedy_batch(
     slots.
 
     ``budgets`` caps tokens per stream below ``max_new_tokens``. The one host
-    sync per step is the ``done.all()`` check (it also closes the step's wall
-    time in ``step_times``). The reference's final step, whose token is never
-    recorded, is skipped."""
+    sync per step is the ``done.all()`` check (``model.decode.sync``); it
+    closes the step's span, whose wall ``step_times`` collects. The
+    reference's final step, whose token is never recorded, is skipped."""
     dev = first_tokens.device
     B = first_tokens.shape[0]
     tokens = torch.full((B, max_new_tokens), -1, dtype=torch.int64, device=dev)
@@ -177,16 +187,17 @@ def _decode_greedy_batch(
         count += 1
         if count == max_new_tokens:
             break
-        t0 = time.perf_counter()
-        hidden = dec.forward_decode_batch(cfg, params, dec.embed_tokens(params, current), cache, tp)
-        current = torch.argmax(dec.logits_for(cfg, params, hidden), dim=-1)
-        newly_done = current == eos_token_id
-        if budgets is not None:
-            newly_done = newly_done | (count >= budgets)
-        done = done | newly_done
-        all_done = bool(done.all())
+        with tracing.span("model.decode.step") as step:
+            hidden = dec.forward_decode_batch(cfg, params, dec.embed_tokens(params, current), cache, tp)
+            current = torch.argmax(dec.logits_for(cfg, params, hidden), dim=-1)
+            newly_done = current == eos_token_id
+            if budgets is not None:
+                newly_done = newly_done | (count >= budgets)
+            done = done | newly_done
+            with tracing.span("model.decode.sync"):
+                all_done = bool(done.all())
         if step_times is not None:
-            step_times.append(time.perf_counter() - t0)
+            step_times.append(step.seconds)
     return tokens.cpu().numpy()
 
 
@@ -299,21 +310,23 @@ class Qwen3ASRModel:
         the true last prompt row and the clip's mel max (a device scalar: the
         streaming session's clip guard reads it), and leaves ``cache.pos`` at
         ``true_len``."""
-        waveform = torch.from_numpy(padded).to(self.device)
-        mel, clip_max = wmel.log_mel_with_max(waveform, mel_frames)
-        chunk = self.config.audio.chunk_frames
-        mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * chunk - mel.shape[0]))
-        audio_embeds = encode_chunks(self.rank_config.audio, self.encoder_params, mel, n_audio, num_chunks,
-                                     self.encoder_tp)
-        dtype = dec.torch_dtype(self.config.decoder.compute_dtype)
-        ids = torch.from_numpy(ids_padded).to(self.device)
-        embeds = _build_prompt_embeds(self.decoder_params, ids, audio_embeds, n_audio,
-                                      len(self.prefix_ids), dtype)
-        hidden = dec.forward(self.rank_config.decoder, self.decoder_params, embeds, cache, self.tp)
-        # the padded tail wrote K/V at positions >= true_len; decode overwrites
-        # them before reading (causal masking keeps positions < true_len exact)
-        cache.pos = true_len
-        logits = dec.logits_for(self.config.decoder, self.decoder_params, hidden[true_len - 1][None])[0]
+        with tracing.span("model.encode"):
+            waveform = torch.from_numpy(padded).to(self.device)
+            mel, clip_max = wmel.log_mel_with_max(waveform, mel_frames)
+            chunk = self.config.audio.chunk_frames
+            mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * chunk - mel.shape[0]))
+            audio_embeds = encode_chunks(self.rank_config.audio, self.encoder_params, mel, n_audio, num_chunks,
+                                         self.encoder_tp)
+        with tracing.span("model.prefill"):
+            dtype = dec.torch_dtype(self.config.decoder.compute_dtype)
+            ids = torch.from_numpy(ids_padded).to(self.device)
+            embeds = _build_prompt_embeds(self.decoder_params, ids, audio_embeds, n_audio,
+                                          len(self.prefix_ids), dtype)
+            hidden = dec.forward(self.rank_config.decoder, self.decoder_params, embeds, cache, self.tp)
+            # the padded tail wrote K/V at positions >= true_len; decode overwrites
+            # them before reading (causal masking keeps positions < true_len exact)
+            cache.pos = true_len
+            logits = dec.logits_for(self.config.decoder, self.decoder_params, hidden[true_len - 1][None])[0]
         return logits, clip_max
 
     @torch.no_grad()
@@ -378,27 +391,29 @@ class Qwen3ASRModel:
         max_new_tokens]``, ``-1`` past each stream's end): encoded in one pass,
         then prefilled and decoded together, ``max_decode_batch()`` at a time.
         A stream's row does not depend on which others share its call."""
-        audio_embeds, n_audio = self._encode_padded(plan.padded[lo:hi], plan.true_samples[lo:hi])
+        with tracing.span("model.encode"):
+            audio_embeds, n_audio = self._encode_padded(plan.padded[lo:hi], plan.true_samples[lo:hi])
         ids = torch.from_numpy(plan.ids[lo:hi]).to(self.device)
         compute = dec.torch_dtype(self.config.decoder.compute_dtype)
-        embeds = torch.stack([
-            _build_prompt_embeds(self.decoder_params, ids[row], audio_embeds[row], n_audio[row],
-                                 len(self.prefix_ids), compute)
-            for row in range(hi - lo)
-        ])
         prompt_lens = plan.prompt_lens[lo:hi]
         out = []
         max_b = max_decode_batch()
         for c0 in range(0, hi - lo, max_b):
-            rows = slice(c0, c0 + max_b)
-            lens = prompt_lens[rows]
-            cache = self.place_cache(dec.init_cache_batch(self.config.decoder, len(lens), plan.capacity,
-                                                          self.cache_dtype, self.device))
-            firsts = _prefill_batch(self.rank_config.decoder, self.decoder_params, embeds[rows], cache,
-                                    [n - 1 for n in lens], self.tp)
-            # the padded tails wrote K/V past each stream's prompt; decode
-            # overwrites them one position at a time before any read
-            cache.set_positions(lens)
+            rows = range(c0, min(c0 + max_b, hi - lo))
+            lens = prompt_lens[c0 : rows.stop]
+            with tracing.span("model.prefill"):
+                embeds = torch.stack([
+                    _build_prompt_embeds(self.decoder_params, ids[row], audio_embeds[row], n_audio[row],
+                                         len(self.prefix_ids), compute)
+                    for row in rows
+                ])
+                cache = self.place_cache(dec.init_cache_batch(self.config.decoder, len(lens), plan.capacity,
+                                                              self.cache_dtype, self.device))
+                firsts = _prefill_batch(self.rank_config.decoder, self.decoder_params, embeds, cache,
+                                        [n - 1 for n in lens], self.tp)
+                # the padded tails wrote K/V past each stream's prompt; decode
+                # overwrites them one position at a time before any read
+                cache.set_positions(lens)
             out.append(_decode_greedy_batch(self.rank_config.decoder, self.decoder_params, firsts, cache,
                                             self.config.eos_token_id, self.max_new_tokens,
                                             step_times=self.last_decode_step_s, tp=self.tp))

@@ -30,6 +30,10 @@ request stateless. Long recordings take ``_transcribe_long_form``
 (``serving/longform.py``: VAD over the whole recording, windows, one batched
 decode). The reference's warm-up ladder precompiles XLA programs and is not
 ported.
+
+A request's audio decode and its VAD are the ``wire.audio`` and ``vad``
+spans (``runtime/tracing.py``); ``stats`` reports every span of the engine
+as ``spans``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from light_whisper_tpu_torch.audio.pcm import decode_inline_audio, read_audio_fi
 from light_whisper_tpu_torch.download.cache import QWEN3_ASR_MODELS, find_snapshot_file
 from light_whisper_tpu_torch.models.qwen3_asr.model import as_device_audio, resolve_device
 from light_whisper_tpu_torch.models.vad.api import VadPrefixSession
+from light_whisper_tpu_torch.runtime import tracing
 from light_whisper_tpu_torch.runtime.server import CLEANUP_EVERY_N, EngineServer, ServerHooks
 from light_whisper_tpu_torch.serving import incremental_batch
 from light_whisper_tpu_torch.serving.session_bridge import transcribe_extending_batch
@@ -278,10 +283,11 @@ class Qwen3EngineServer:
 
     def _filter_speech(self, audio: np.ndarray, session_key: str):
         """Trim leading and trailing silence only: inner pauses stay, so the
-        model still sees natural phrase timing."""
-        started = time.perf_counter()
-        segments = self._vad_timestamps(audio, session_key)
-        vad_ms = (time.perf_counter() - started) * 1000
+        model still sees natural phrase timing. ``vad_ms`` is the ``vad``
+        span's wall."""
+        with tracing.span("vad") as vad_span:
+            segments = self._vad_timestamps(audio, session_key)
+        vad_ms = vad_span.seconds * 1000
         with self._stats_lock:
             self._vad_calls += 1
             self._total_vad_ms += vad_ms
@@ -472,9 +478,10 @@ class Qwen3EngineServer:
         # default session (a single-user client never names a stream)
         session_key = str(named_stream) if named_stream else DEFAULT_STREAM
         try:
-            audio, duration, input_mode = self._load_audio(
-                audio_path, audio_base64, audio_format, sample_rate
-            )
+            with tracing.span("wire.audio"):
+                audio, duration, input_mode = self._load_audio(
+                    audio_path, audio_base64, audio_format, sample_rate
+                )
             with self._stats_lock:
                 self.total_audio_duration += duration
             if duration < MIN_DURATION_SECONDS:
@@ -639,6 +646,8 @@ class Qwen3EngineServer:
             "init_phases": dict(self._init_timings),
         }
         stats.update(self._retained_audio_bytes())
+        # the engine's host spans since the process started (runtime/tracing.py)
+        stats["spans"] = tracing.snapshot()
         if self._session_pool:
             stats.update(self._session_pool.stats())
         if self._scheduler is not None:

@@ -35,6 +35,12 @@ coalesce into ONE batched decode on the device.
 Commands without a ``request_id`` cannot be correlated out of order, so the
 loop drains all in-flight work first and answers them in arrival order —
 byte-identical behavior for a legacy serial client.
+
+A pipelined transcribe records three spans here (``runtime/tracing.py``):
+``wire.parse`` (its line read → parsed and handed to the pool),
+``wire.pool_wait`` (handed → a worker starts it) and ``wire.reply`` (its
+reply serialized, written and flushed). The worker serves it under its
+request id (``tracing.requests``), which the spans beneath carry.
 """
 
 from __future__ import annotations
@@ -45,9 +51,12 @@ import logging
 import os
 import sys
 import threading
+import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, IO, Optional
+
+from light_whisper_tpu_torch.runtime import tracing
 
 
 # The reference schedules a GC/cache cleanup every N transcriptions
@@ -137,19 +146,22 @@ class EngineServer:
             )
         with self._inflight_cv:
             self._inflight += 1
-        self._executor.submit(self._run_transcribe, command, request_id)
+        self._executor.submit(self._run_transcribe, command, request_id, time.perf_counter())
 
-    def _run_transcribe(self, command: Dict[str, Any], request_id: int) -> None:
+    def _run_transcribe(self, command: Dict[str, Any], request_id: int, submitted: float) -> None:
+        tracing.record("wire.pool_wait", time.perf_counter() - submitted)
         try:
-            try:
-                result = self._dispatch("transcribe", command)
-            except Exception as exc:
-                result = {
-                    "success": False,
-                    "error": str(exc),
-                    "traceback": traceback.format_exc(),
-                }
-            self._emit(result, request_id)
+            with tracing.requests((request_id,)):
+                try:
+                    result = self._dispatch("transcribe", command)
+                except Exception as exc:
+                    result = {
+                        "success": False,
+                        "error": str(exc),
+                        "traceback": traceback.format_exc(),
+                    }
+                with tracing.span("wire.reply"):
+                    self._emit(result, request_id)
         finally:
             with self._inflight_cv:
                 self._inflight -= 1
@@ -171,6 +183,7 @@ class EngineServer:
         shutdown_ran = False
         while self._running:
             line = self._stdin.readline()
+            read = time.perf_counter()
             if not line:
                 break
             line = line.strip()
@@ -211,6 +224,7 @@ class EngineServer:
                     break
                 if action == "transcribe" and request_id is not None:
                     self._spawn_transcribe(command, request_id)
+                    tracing.record("wire.parse", time.perf_counter() - read)
                     continue
                 result = self._dispatch(action, command)
             except Exception as exc:  # pragma: no cover - defensive parity path

@@ -61,6 +61,7 @@ from light_whisper_tpu_torch.models.qwen3_asr.model import (
     as_device_audio,
     bucket_audio_samples,
 )
+from light_whisper_tpu_torch.runtime import tracing
 
 SEGMENT_BUCKET = 64
 INTERIM_MAX_NEW_TOKENS = 96
@@ -115,18 +116,21 @@ def _encode_prefill_segment(model: Qwen3ASRModel, padded: np.ndarray, n_audio: i
     suffix, draft) → prefill from ``cache.pos`` (= prefix + stable) → argmax
     of every row. Returns ``(argmax window, clip max)`` on the host (one sync):
     the ``DRAFT_TOKENS + 1`` predictions from the row that predicts the first
-    token on."""
+    token on. The ``model.encode`` and ``model.prefill`` spans, the latter
+    closed by that sync."""
     cfg = model.config
-    waveform = torch.from_numpy(padded).to(model.device)
-    mel, clip_max = wmel.log_mel_with_max(waveform, mel_frames)
-    mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * cfg.audio.chunk_frames - mel.shape[0]))
-    audio_embeds = encode_chunks(model.rank_config.audio, model.encoder_params, mel, n_audio, num_chunks,
-                                 model.encoder_tp)
-    embeds = _segment_embeds(model, audio_embeds, n_audio, stable, draft, seg_bucket)
-    hidden = dec.forward(model.rank_config.decoder, model.decoder_params, embeds, cache, model.tp)
-    preds = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, hidden), dim=-1)
-    first_index = (n_audio - stable) + len(model.suffix_ids) - 1
-    window = preds[first_index : first_index + DRAFT_TOKENS + 1].cpu().tolist()
+    with tracing.span("model.encode"):
+        waveform = torch.from_numpy(padded).to(model.device)
+        mel, clip_max = wmel.log_mel_with_max(waveform, mel_frames)
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, num_chunks * cfg.audio.chunk_frames - mel.shape[0]))
+        audio_embeds = encode_chunks(model.rank_config.audio, model.encoder_params, mel, n_audio, num_chunks,
+                                     model.encoder_tp)
+    with tracing.span("model.prefill"):
+        embeds = _segment_embeds(model, audio_embeds, n_audio, stable, draft, seg_bucket)
+        hidden = dec.forward(model.rank_config.decoder, model.decoder_params, embeds, cache, model.tp)
+        preds = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, hidden), dim=-1)
+        first_index = (n_audio - stable) + len(model.suffix_ids) - 1
+        window = preds[first_index : first_index + DRAFT_TOKENS + 1].cpu().tolist()
     return window, float(clip_max)
 
 

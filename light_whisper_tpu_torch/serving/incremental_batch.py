@@ -47,6 +47,7 @@ from light_whisper_tpu_torch.models.qwen3_asr.model import (
     bucket_audio_samples,
     max_decode_batch,
 )
+from light_whisper_tpu_torch.runtime import tracing
 from light_whisper_tpu_torch.serving.incremental import (
     CLIP_MAX_EPS,
     DRAFT_TOKENS,
@@ -186,24 +187,28 @@ def _run_group_fresh(plans: List[_TickPlan]):
     prefix_len = len(model.prefix_ids)
     capacity = plans[0].capacity
     max_new = plans[0].transcriber.max_new_tokens
-    audio_embeds, clip_dev = _encode_batch(model, waveforms, [p.n_audio for p in plans], mel_frames, num_chunks)
+    with tracing.span("model.encode"):
+        audio_embeds, clip_dev = _encode_batch(model, waveforms, [p.n_audio for p in plans], mel_frames,
+                                               num_chunks)
 
-    bucket_len = _round_up(max(p.true_len for p in plans), SEGMENT_BUCKET)
-    ids = np.full((len(plans), bucket_len), cfg.pad_token_id, dtype=np.int64)
-    for b, p in enumerate(plans):
-        ids[b, : p.true_len] = model._prompt_ids(p.n_audio)
-    dtype = dec.torch_dtype(cfg.decoder.compute_dtype)
-    embeds = dec.embed_tokens(model.decoder_params, torch.from_numpy(ids).to(model.device)).to(dtype)
-    for b, p in enumerate(plans):
-        embeds[b, prefix_len : prefix_len + p.n_audio] = audio_embeds[b, : p.n_audio].to(dtype)
+    with tracing.span("model.prefill"):
+        bucket_len = _round_up(max(p.true_len for p in plans), SEGMENT_BUCKET)
+        ids = np.full((len(plans), bucket_len), cfg.pad_token_id, dtype=np.int64)
+        for b, p in enumerate(plans):
+            ids[b, : p.true_len] = model._prompt_ids(p.n_audio)
+        dtype = dec.torch_dtype(cfg.decoder.compute_dtype)
+        embeds = dec.embed_tokens(model.decoder_params, torch.from_numpy(ids).to(model.device)).to(dtype)
+        for b, p in enumerate(plans):
+            embeds[b, prefix_len : prefix_len + p.n_audio] = audio_embeds[b, : p.n_audio].to(dtype)
 
-    caches = model.place_cache(dec.init_cache_batch(cfg.decoder, len(plans), capacity, model.cache_dtype,
-                                                    model.device))
-    hidden = dec.forward_prefill_batch(model.rank_config.decoder, model.decoder_params, embeds, caches, model.tp)
-    last = hidden[torch.arange(len(plans), device=hidden.device),
-                  torch.tensor([p.true_len - 1 for p in plans], device=hidden.device)]
-    first = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, last), dim=-1)
-    caches.set_positions([p.true_len for p in plans])
+        caches = model.place_cache(dec.init_cache_batch(cfg.decoder, len(plans), capacity, model.cache_dtype,
+                                                        model.device))
+        hidden = dec.forward_prefill_batch(model.rank_config.decoder, model.decoder_params, embeds, caches,
+                                           model.tp)
+        last = hidden[torch.arange(len(plans), device=hidden.device),
+                      torch.tensor([p.true_len - 1 for p in plans], device=hidden.device)]
+        first = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, last), dim=-1)
+        caches.set_positions([p.true_len for p in plans])
     step_times: List[float] = []
     tokens = _decode_greedy_batch(model.rank_config.decoder, model.decoder_params, first, caches, cfg.eos_token_id,
                                   max_new, step_times=step_times, tp=model.tp)
@@ -246,26 +251,30 @@ def _run_group(plans: List[_TickPlan]):
     model, waveforms, mel_frames, num_chunks = _layout(plans)
     cfg = model.config
     max_new = plans[0].transcriber.max_new_tokens
-    audio_embeds, clip_dev = _encode_batch(model, waveforms, [p.n_audio for p in plans], mel_frames, num_chunks)
-    embeds = torch.stack([_segment_embeds(model, audio_embeds[b], p.n_audio, p.stable, p.draft, seg_bucket)
-                          for b, p in enumerate(plans)])
+    with tracing.span("model.encode"):
+        audio_embeds, clip_dev = _encode_batch(model, waveforms, [p.n_audio for p in plans], mel_frames,
+                                               num_chunks)
+    with tracing.span("model.prefill"):
+        embeds = torch.stack([_segment_embeds(model, audio_embeds[b], p.n_audio, p.stable, p.draft, seg_bucket)
+                              for b, p in enumerate(plans)])
 
-    # a batch copy of the streams' caches: the sessions keep theirs until
-    # every stream's results are in
-    caches = dec.BatchKVCache(k=torch.stack([p.transcriber._cache.k for p in plans]),
-                              v=torch.stack([p.transcriber._cache.v for p in plans]),
-                              pos=torch.zeros(0), pos_host=[])
-    caches.set_positions([prefix_len + p.stable for p in plans])
-    hidden = dec.forward_prefill_batch(model.rank_config.decoder, model.decoder_params, embeds, caches, model.tp)
-    # verify each stream's draft on the DRAFT_TOKENS + 1 rows from the one
-    # that predicts its first token: the logits head sees only those rows
-    first_index = torch.tensor([(p.n_audio - p.stable) + len(model.suffix_ids) - 1 for p in plans],
-                               device=hidden.device)
-    rows = torch.clamp(first_index[:, None] + torch.arange(DRAFT_TOKENS + 1, device=hidden.device),
-                       max=seg_bucket - 1)
-    window_hidden = torch.gather(hidden, 1, rows[..., None].expand(-1, -1, hidden.shape[-1]))
-    preds = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, window_hidden), dim=-1)
-    preds_np, clip_np = preds.cpu().numpy(), clip_dev.cpu().numpy()  # the one sync before decode
+        # a batch copy of the streams' caches: the sessions keep theirs until
+        # every stream's results are in
+        caches = dec.BatchKVCache(k=torch.stack([p.transcriber._cache.k for p in plans]),
+                                  v=torch.stack([p.transcriber._cache.v for p in plans]),
+                                  pos=torch.zeros(0), pos_host=[])
+        caches.set_positions([prefix_len + p.stable for p in plans])
+        hidden = dec.forward_prefill_batch(model.rank_config.decoder, model.decoder_params, embeds, caches,
+                                           model.tp)
+        # verify each stream's draft on the DRAFT_TOKENS + 1 rows from the one
+        # that predicts its first token: the logits head sees only those rows
+        first_index = torch.tensor([(p.n_audio - p.stable) + len(model.suffix_ids) - 1 for p in plans],
+                                   device=hidden.device)
+        rows = torch.clamp(first_index[:, None] + torch.arange(DRAFT_TOKENS + 1, device=hidden.device),
+                           max=seg_bucket - 1)
+        window_hidden = torch.gather(hidden, 1, rows[..., None].expand(-1, -1, hidden.shape[-1]))
+        preds = torch.argmax(dec.logits_for(cfg.decoder, model.decoder_params, window_hidden), dim=-1)
+        preds_np, clip_np = preds.cpu().numpy(), clip_dev.cpu().numpy()  # the one sync before decode
     accepted = [accept_draft(preds_np[b].tolist(), p.draft) for b, p in enumerate(plans)]
     first = torch.as_tensor(preds_np[np.arange(len(plans)), accepted], device=model.device)
     caches.set_positions([p.true_len + a for p, a in zip(plans, accepted)])

@@ -23,6 +23,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from light_whisper_tpu_torch.runtime import tracing
+
 SAMPLE_RATE = 16_000
 DEFAULT_MAX_WINDOW_SECONDS = 28.0
 DEFAULT_PAD_SECONDS = 0.12
@@ -119,9 +121,9 @@ def transcribe_long_form(
     import time
 
     audio = np.asarray(audio, dtype=np.float32).reshape(-1)
-    t0 = time.perf_counter()
-    segments = vad.speech_timestamps(audio)
-    vad_ms = (time.perf_counter() - t0) * 1000
+    with tracing.span("vad") as vad_span:
+        segments = vad.speech_timestamps(audio)
+    vad_ms = vad_span.seconds * 1000
     if not segments:
         return LongFormResult(
             text="", language="unknown", num_windows=0, speech_seconds=0.0, vad_ms=vad_ms

@@ -13,7 +13,10 @@ program at a time per model) but adds what a single-process engine can:
 - per-stream generations — a new request from the same stream invalidates
   queued stale ones (the request_id-discard pattern of the protocol, done
   before wasting device time instead of after),
-- per-request latency stats (p50/p95) for the ``stats`` action.
+- per-request latency stats (p50/p95) for the ``stats`` action: each job's
+  ``scheduler.dispatch`` span wall (``runtime/tracing.py``). A job's wait
+  from submit to its dispatch is recorded as ``scheduler.queue``; a dispatch
+  carries the request ids of every job it runs.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import itertools
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+from light_whisper_tpu_torch.runtime import tracing
 
 PRIORITY_FINALIZE = 0
 PRIORITY_INTERIM = 1
@@ -51,6 +56,9 @@ class _Job:
         compare=False, default=None
     )
     max_batch: int = dataclasses.field(compare=False, default=8)
+    # when it was queued, and the request ids of the submitting thread
+    submitted: float = dataclasses.field(compare=False, default_factory=time.perf_counter)
+    rids: tuple = dataclasses.field(compare=False, default_factory=tracing.current_requests)
 
 
 class EngineScheduler:
@@ -199,38 +207,45 @@ class EngineScheduler:
                 job.cancelled = True
                 job.done.set()
                 continue
+            batch = [job, *members]
             started = time.perf_counter()
-            if members:
-                batch = [job, *members]
-                try:
-                    results = job.batch_runner([j.payload for j in batch])
-                    if len(results) != len(batch):
-                        raise RuntimeError(
-                            f"batch_runner returned {len(results)} results "
-                            f"for {len(batch)} jobs"
-                        )
-                    for j, res in zip(batch, results):
-                        j.result = res
-                except BaseException as exc:  # surfaced via wait()
-                    for j in batch:
-                        j.error = exc
-                finally:
-                    elapsed = time.perf_counter() - started
-                    with self._lock:
-                        self._latencies.extend([elapsed] * len(batch))
-                        self._batches += 1
-                        self._batched_jobs += len(batch)
-                    for j in batch:
-                        j.done.set()
-                continue
+            for j in batch:
+                tracing.record("scheduler.queue", started - j.submitted)
+            dispatch = tracing.span("scheduler.dispatch")
             try:
-                job.result = job.work()
-            except BaseException as exc:  # surfaced via wait()
-                job.error = exc
+                with tracing.requests(r for j in batch for r in j.rids), dispatch:
+                    self._dispatch(job, batch)
             finally:
                 with self._lock:
-                    self._latencies.append(time.perf_counter() - started)
-                job.done.set()
+                    self._latencies.extend([dispatch.seconds] * len(batch))
+                    if members:
+                        self._batches += 1
+                        self._batched_jobs += len(batch)
+                for j in batch:
+                    j.done.set()
+
+    @staticmethod
+    def _dispatch(job: _Job, batch: List[_Job]) -> None:
+        """Run one job, or a coalesced batch as one ``batch_runner`` call;
+        errors are surfaced via ``wait()``."""
+        if len(batch) == 1:
+            try:
+                job.result = job.work()
+            except BaseException as exc:
+                job.error = exc
+            return
+        try:
+            results = job.batch_runner([j.payload for j in batch])
+            if len(results) != len(batch):
+                raise RuntimeError(
+                    f"batch_runner returned {len(results)} results "
+                    f"for {len(batch)} jobs"
+                )
+            for j, res in zip(batch, results):
+                j.result = res
+        except BaseException as exc:
+            for j in batch:
+                j.error = exc
 
     def _drain_batch_members(self, lead: _Job) -> List[_Job]:
         """Pull queued live jobs sharing ``lead.batch_key`` (lock held).
