@@ -39,7 +39,9 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
    port's engine server through the wire loop on in-memory pipes, driven
    along seven paths, each with the kernels' launch counts set to 0 just
    before it and read just after:
-   - slice: a 2 s and a 12 s speech-like request and silence, one at a time;
+   - slice: a 2 s and a 12 s speech-like request and silence, one at a time
+     (each speech request's decode captured once as a CUDA graph and every
+     step a replay);
    - batch: four concurrent requests of 2-3 s, then four of 4-12 s, written
      at once so that the ones queued behind the first coalesce into one
      batched prefill and decode. Then, on the model and counted apart
@@ -73,8 +75,9 @@ Phases, one line each (``phase <name>: ok|FAIL ...``):
      thread at the adaptive 140-460 ms interval, then finalize); the events'
      names and fields must be the reference's, and the final text a fresh
      ``IncrementalTranscriber`` transcribe's under ``narrow_verdict`` (or, from
-     the interim cache, the last tick's). Q8 kernels #1-#3 and decode
-     attention must launch on it, the batched attention and the fused FFN not;
+     the interim cache, the last tick's). Q8 kernels #1-#3 and the batched
+     attention (every decode step, B=1 included) must launch on it, the fused
+     FFN not;
 6. precise: the same artifact served with ``LIGHT_WHISPER_PRECISE=1`` (dense
    f32 weights, f32 compute and KV cache) through the wire loop, the 2 s and
    12 s requests of ``slice``: no kernel launched, every KV cache f32, the
@@ -1029,12 +1032,22 @@ def start_server():
     return engine, client, path, cfg
 
 
+def _graph_spans() -> dict:
+    """The decode loops' step, capture and replay counts so far."""
+    from light_whisper_tpu_torch.runtime import tracing
+
+    snap = tracing.snapshot()
+    return {n: snap.get(n, {"count": 0})["count"] for n in ("model.decode.step", "model.decode.capture",
+                                                             "model.decode.replay")}
+
+
 def phase_slice(torch, engine, client, cfg, launches: Launches):
     import numpy as np
 
     from light_whisper_tpu_torch.eval.speechlike import speechlike
 
     launches.start()
+    spans0 = _graph_spans()
     requests = (("speech 2 s", speechlike(2.0, seed=SEED), True),
                 ("speech 12 s", speechlike(12.0, seed=SEED + 1), True),
                 ("silence 3 s", np.zeros(3 * 16000, np.float32), False))
@@ -1054,7 +1067,14 @@ def phase_slice(torch, engine, client, cfg, launches: Launches):
         else:
             require(reply.get("vad_segments") == 0, f"{name}: expected no VAD segment: {reply}")
             say(f"  {name}: vad_segments=0 vad_ms={reply['vad_ms']}")
-    launches.read("slice", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused", "decode_attention"])
+    # decode attention: the 2 s prompt's 64 rows; the batched attention: every B=1 decode step
+    launches.read("slice", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused", "decode_attention",
+                            "decode_attention_batched"])
+    graphs = {k: v - spans0.get(k, 0) for k, v in _graph_spans().items()}
+    require(graphs["model.decode.capture"] == 2 and graphs["model.decode.replay"] == graphs["model.decode.step"] > 0,
+            f"the slice's decode steps did not all replay a graph captured once a request: {graphs}")
+    say(f"  decode graphs: {graphs['model.decode.capture']} captured, {graphs['model.decode.replay']} replays "
+        f"for {graphs['model.decode.step']} steps")
 
     # the served model's prefill logits are finite and of the padded vocab width
     logits = engine.model.teacher_forced_logits(speechlike(2.0, seed=SEED), [1, 2])
@@ -1202,7 +1222,7 @@ def phase_single_pass(torch, engine, client, cfg, launches: Launches):
     require(not any(key.startswith("long_form") for key in reply), f"single-pass reply has long-form keys: {reply}")
     require(reply.get("vad_segments", 0) >= 1, f"single-pass: no VAD segment: {reply}")
     got = launches.read("single-pass", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
-                                        "decode_attention", "flash_prefill"])
+                                        "decode_attention_batched", "flash_prefill"])
     layers = cfg.decoder.block_count
     require(got["flash_prefill"] == layers,
             f"flash_prefill launched {got['flash_prefill']} times; one prefill takes {layers}, one a layer")
@@ -1512,9 +1532,8 @@ def phase_dictate(torch, engine, launches: Launches):
     dictate(model, clip, emit, realtime=True, transcriber=inc)
     wall = time.perf_counter() - t0
     got = launches.read("dictate", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
-                                    "decode_attention"])  # after the controller joined its thread
-    for name in ("decode_attention_batched", "fused_ffn_step"):
-        require(got[name] == 0, f"{name} launched {got[name]} times on the dictate path")
+                                    "decode_attention_batched"])  # after the controller joined its thread
+    require(got["fused_ffn_step"] == 0, f"fused_ffn_step launched {got['fused_ffn_step']} times on the dictate path")
     interims, final = check_dictation(events, DICTATE_SECONDS)
     require(len(interims) >= 1, f"no interim event in a {DICTATE_SECONDS:g} s dictation")
     for event, (n, med) in zip(interims, steps):
@@ -1884,7 +1903,7 @@ def phase_mesh(torch, model_path: str, launches: Launches, profile_dir=None):
         finally:
             os.environ.pop("LWT_FUSED_FFN", None)
         counts = launches.read("mesh", ["q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused",
-                                        "decode_attention", "decode_attention_batched"])
+                                        "decode_attention_batched"])
         require(counts["fused_ffn_step"] == 0, f"fused_ffn_step launched {counts['fused_ffn_step']} times under a mesh")
         require(got["tick_counts"][1] >= 1, f"the extending tick did not extend: {got['tick_counts']}")
 

@@ -40,6 +40,15 @@ Routing follows the reference's fused-decode flow (``_layer_forward_stacked``):
   reference's ``_layer_forward_stacked`` does; the batched forwards never
   take it, as the reference's ``_layer_forward_batch`` does not.
 
+The greedy loops step with :func:`decode_step` (the B=1 loop on a 1-stream
+view of its cache, :meth:`KVCache.as_batch`): the batched decode forward at
+device positions, so that on the card a loop captures its step once as a
+CUDA graph and replays it for every token (``step_graph``, where
+:func:`graphs_engage`; under a mesh and in f32 compute the same step runs
+eagerly). With ``LWT_FUSED_FFN`` set and no mesh the B=1 loop keeps
+:func:`forward` at the host position, eager: the one-launch FFN half is a
+single-stream route.
+
 Under a tensor-parallel mesh (``tp``, a ``parallel.sharding.TensorParallel``;
 ``Qwen3ASRModel(mesh=)``) ``cfg`` holds this rank's head and FFN counts and
 ``params`` its shard. The route is then one at every ``tp``, 1 included:
@@ -58,6 +67,7 @@ as in the reference.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -84,6 +94,7 @@ from light_whisper_tpu_torch.ops.q8_matmul import (
     q8_matmul_stacked_fused,
     rms_norm,
 )
+from light_whisper_tpu_torch.models.qwen3_asr import step_graph
 from light_whisper_tpu_torch.runtime import tracing
 
 _PROJ_NAMES = ("qkv", "o", "gateup", "down")
@@ -121,6 +132,13 @@ class KVCache:
     k: torch.Tensor  # [L, Hkv, C, hd]
     v: torch.Tensor
     pos: int = 0
+
+    def as_batch(self) -> "BatchKVCache":
+        """This cache as one stream of a :class:`BatchKVCache`: ``[1, L, Hkv, C,
+        hd]`` views of its buffers (nothing is copied) at its position."""
+        view = BatchKVCache(k=self.k.unsqueeze(0), v=self.v.unsqueeze(0), pos=torch.zeros(0), pos_host=[])
+        view.set_positions([self.pos])
+        return view
 
 
 def init_cache(cfg: DecoderConfig, capacity: int, dtype=torch.bfloat16, device="cpu") -> KVCache:
@@ -536,6 +554,26 @@ def logits_for(cfg: DecoderConfig, params: Dict, hidden: torch.Tensor) -> torch.
     return logits
 
 
+def graphs_engage(cfg: DecoderConfig, device: torch.device, steps: int, tp=Replicated) -> bool:
+    """Whether a decode loop of at most ``steps`` steps captures its step as a
+    CUDA graph: on a card, without a mesh (``tp.reduce`` is an NCCL call a
+    layer), in bf16 compute (precise mode's f32 loop stays eager), and for
+    more than one step (a capture costs more than the one eager step it
+    would replace)."""
+    return device.type == "cuda" and tp is Replicated and cfg.compute_dtype == "bfloat16" and steps > 1
+
+
+def decode_step(cfg: DecoderConfig, params: Dict, token: torch.Tensor, cache: BatchKVCache,
+                tp=Replicated) -> None:
+    """One greedy step of B streams, in place: ``token`` (int64 ``[B]``) holds
+    each stream's last token and gets its next; each stream's K/V land at its
+    device position, which moves on by one (:func:`forward_decode_batch`).
+    The step reads and writes only these tensors and the weights, so a
+    captured graph of it can be replayed."""
+    hidden = forward_decode_batch(cfg, params, embed_tokens(params, token), cache, tp)
+    token.copy_(torch.argmax(logits_for(cfg, params, hidden), dim=-1))
+
+
 def embed_tokens(params: Dict, ids: torch.Tensor) -> torch.Tensor:
     embed = params["embed"]
     if "q" in embed:
@@ -562,22 +600,43 @@ def decode_greedy(
     ``budget`` where that is smaller (the speculative tick passes
     ``max_new_tokens`` less its accepted draft; the reference's on-device loop
     records the same ids; its final step, whose token is never recorded, is
-    skipped). Each step is a ``model.decode.step`` span, closed by its one
-    sync, the EOS check's ``token.item()`` (``model.decode.sync``);
-    ``step_times`` collects the steps' walls."""
+    skipped). The step is the batched loop's, :func:`decode_step`, on a
+    1-stream view of ``cache`` (:meth:`KVCache.as_batch`), captured and
+    replayed where :func:`graphs_engage`; ``cache.pos`` is set from the view
+    when the loop ends. With ``LWT_FUSED_FFN`` set and no mesh (the one-launch
+    FFN half is a single-stream route) the step is :func:`forward` at the
+    host position, eager. Each step is a
+    ``model.decode.step`` span, closed by its one sync, the EOS check's
+    ``token.item()`` (``model.decode.sync``); ``step_times`` collects the
+    steps' walls."""
     limit = max_new_tokens if budget is None else min(max_new_tokens, int(budget))
     generated: List[int] = []
-    token = first_token.reshape(1)
+    token = first_token.reshape(1).to(torch.int64, copy=True)  # every step writes its argmax here
     token_id = int(token.item())
-    while token_id != eos_token_id and len(generated) < limit:
-        generated.append(token_id)
-        if len(generated) == limit:
-            break
-        with tracing.span("model.decode.step") as step:
+    view = None
+    if _use_fused_ffn() and tp is Replicated:
+        def forward_step() -> None:
             hidden = forward(cfg, params, embed_tokens(params, token), cache, tp)
-            token = torch.argmax(logits_for(cfg, params, hidden[-1:])[-1]).reshape(1)
-            with tracing.span("model.decode.sync"):
-                token_id = int(token.item())
-        if step_times is not None:
-            step_times.append(step.seconds)
+            token.copy_(torch.argmax(logits_for(cfg, params, hidden[-1:])[-1]).reshape(1))
+
+        runner = contextlib.nullcontext(forward_step)
+    else:
+        view = cache.as_batch()
+        runner = step_graph.StepGraph(lambda: decode_step(cfg, params, token, view, tp), view,
+                                      graphs_engage(cfg, token.device, limit - 1, tp))
+    try:
+        with runner as run:
+            while token_id != eos_token_id and len(generated) < limit:
+                generated.append(token_id)
+                if len(generated) == limit:
+                    break
+                with tracing.span("model.decode.step") as step:
+                    run()
+                    with tracing.span("model.decode.sync"):
+                        token_id = int(token.item())
+                if step_times is not None:
+                    step_times.append(step.seconds)
+    finally:
+        if view is not None:
+            cache.pos = view.pos_host[0]
     return generated

@@ -54,6 +54,7 @@ from light_whisper_tpu_torch.models.qwen3_asr.prompt import resolve_prompt_ids
 from light_whisper_tpu_torch.audio import mel as wmel
 from light_whisper_tpu_torch.audio.mel import SAMPLE_RATE
 from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+from light_whisper_tpu_torch.models.qwen3_asr import step_graph
 from light_whisper_tpu_torch.models.qwen3_asr.encoder import encode, encode_chunks
 from light_whisper_tpu_torch.models.qwen3_asr.loader import Qwen3ASRWeights, _to_device
 from light_whisper_tpu_torch.runtime import tracing
@@ -168,36 +169,49 @@ def _decode_greedy_batch(
     is not done. Returns ``[B, max_new_tokens]`` int64 ids, ``-1`` in unused
     slots.
 
-    ``budgets`` caps tokens per stream below ``max_new_tokens``. The one host
-    sync per step is the ``done.all()`` check (``model.decode.sync``); it
-    closes the step's span, whose wall ``step_times`` collects. The
-    reference's final step, whose token is never recorded, is skipped."""
+    ``budgets`` caps tokens per stream below ``max_new_tokens``. A step
+    (``dec.decode_step``, then the EOS and budget update of ``done``
+    against the step count kept on the device) reads and writes only buffers
+    made here and the cache, so where ``dec.graphs_engage`` it is captured
+    once and replayed (``step_graph``). The one host sync per step is the
+    ``done.all()`` check (``model.decode.sync``); it closes the step's span,
+    whose wall ``step_times`` collects. The reference's final step, whose
+    token is never recorded, is skipped."""
     dev = first_tokens.device
     B = first_tokens.shape[0]
     tokens = torch.full((B, max_new_tokens), -1, dtype=torch.int64, device=dev)
-    current = first_tokens.to(torch.int64)
+    current = first_tokens.to(torch.int64, copy=True)  # every step writes its argmax here
     done = current == eos_token_id
+    most = max_new_tokens - 1  # steps the loop may run: the step after the last budget's token ends it
     if budgets is not None:
-        budgets = torch.as_tensor(list(budgets), dtype=torch.int64, device=dev)
-        done = done | (budgets <= 0)
+        budgets = list(budgets)
+        most = min(most, max(budgets, default=0))
+        budgets = torch.as_tensor(budgets, dtype=torch.int64, device=dev)
+        done |= budgets <= 0
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def body() -> None:
+        dec.decode_step(cfg, params, current, cache, tp)
+        steps.add_(1)
+        newly_done = current == eos_token_id
+        if budgets is not None:
+            newly_done |= steps >= budgets
+        done.logical_or_(newly_done)
+
     count = 0
     all_done = bool(done.all())
-    while count < max_new_tokens and not all_done:
-        tokens[:, count] = torch.where(done, -1, current)
-        count += 1
-        if count == max_new_tokens:
-            break
-        with tracing.span("model.decode.step") as step:
-            hidden = dec.forward_decode_batch(cfg, params, dec.embed_tokens(params, current), cache, tp)
-            current = torch.argmax(dec.logits_for(cfg, params, hidden), dim=-1)
-            newly_done = current == eos_token_id
-            if budgets is not None:
-                newly_done = newly_done | (count >= budgets)
-            done = done | newly_done
-            with tracing.span("model.decode.sync"):
-                all_done = bool(done.all())
-        if step_times is not None:
-            step_times.append(step.seconds)
+    with step_graph.StepGraph(body, cache, dec.graphs_engage(cfg, dev, most, tp)) as run:
+        while count < max_new_tokens and not all_done:
+            tokens[:, count] = torch.where(done, -1, current)
+            count += 1
+            if count == max_new_tokens:
+                break
+            with tracing.span("model.decode.step") as step:
+                run()
+                with tracing.span("model.decode.sync"):
+                    all_done = bool(done.all())
+            if step_times is not None:
+                step_times.append(step.seconds)
     return tokens.cpu().numpy()
 
 

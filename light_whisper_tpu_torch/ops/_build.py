@@ -14,6 +14,7 @@ Nothing is built at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lwt_torch_kernels"
@@ -127,6 +128,30 @@ def library() -> ctypes.CDLL:
             lib.lwt_q8_matmul_perm.restype = ci
             _lib = lib
         return _lib
+
+
+_tally = threading.local()
+
+
+def count_launch(counters: Dict[str, int], key: str) -> None:
+    """Count one launch in an op module's ``LAUNCHES``; inside
+    :func:`launch_tally` on this thread, note it there too."""
+    counters[key] += 1
+    notes = getattr(_tally, "notes", None)
+    if notes is not None:
+        notes.append((counters, key))
+
+
+@contextlib.contextmanager
+def launch_tally() -> Iterator[List[Tuple[Dict[str, int], str]]]:
+    """The ``(counters, key)`` of every launch this thread counts inside the
+    block (a CUDA graph capture counts launches it only records)."""
+    previous = getattr(_tally, "notes", None)
+    _tally.notes = notes = []
+    try:
+        yield notes
+    finally:
+        _tally.notes = previous
 
 
 def check(err: int, what: str) -> None:

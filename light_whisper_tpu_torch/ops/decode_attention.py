@@ -251,7 +251,7 @@ def _launch_rows(q, k_layer, v_layer, start: int, counter: str) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "lwt_decode_attention")
-    LAUNCHES[counter] += 1
+    _build.count_launch(LAUNCHES, counter)
     return out
 
 
@@ -316,5 +316,5 @@ def decode_attention_batched(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "lwt_decode_attention_batched")
-    LAUNCHES["decode_attention_batched"] += 1
+    _build.count_launch(LAUNCHES, "decode_attention_batched")
     return out

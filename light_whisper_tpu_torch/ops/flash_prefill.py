@@ -194,5 +194,5 @@ def flash_prefill(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "lwt_flash_prefill")
-    LAUNCHES["flash_prefill"] += 1
+    _build.count_launch(LAUNCHES, "flash_prefill")
     return out

@@ -128,7 +128,7 @@ def fused_gateup_silu(h: torch.Tensor, gateup_q: torch.Tensor, gateup_s: torch.T
         h.data_ptr(), gq.data_ptr(), gs.data_ptr(), inner.data_ptr(), T, D, F,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lwt_fused_gateup_silu")
-    LAUNCHES["fused_gateup_silu"] += 1
+    _build.count_launch(LAUNCHES, "fused_gateup_silu")
     return inner
 
 
@@ -160,5 +160,5 @@ def fused_ffn_step(x: torch.Tensor, norm_w: torch.Tensor, gateup_q: torch.Tensor
         x.data_ptr(), norm_w.data_ptr(), gq.data_ptr(), gs.data_ptr(), dq.data_ptr(), ds.data_ptr(),
         inner.data_ptr(), y.data_ptr(), _barrier(dev, stream).data_ptr(), T, D, F, float(eps), stream)
     _build.check(err, "lwt_fused_ffn_step")
-    LAUNCHES["fused_ffn_step"] += 1
+    _build.count_launch(LAUNCHES, "fused_ffn_step")
     return y

@@ -181,7 +181,7 @@ def _launch(form, x2, q2, s2, norm_w, eps, residual) -> torch.Tensor:
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "lwt_q8_matmul")
-    LAUNCHES[form] += 1
+    _build.count_launch(LAUNCHES, form)
     return y
 
 

@@ -21,7 +21,12 @@ difference of two ``stats`` snapshots' ``total_ms`` over that of their
   draft window's read, which the tick needs);
 - ``model.decode.step``: one decode step, closed by its one sync,
   ``model.decode.sync`` (the host waiting for the device); its wall is the
-  step lists' entry.
+  step lists' entry;
+- ``model.decode.capture`` (a decode loop's step captured as a CUDA graph,
+  on its first step; the count is the number of captures) and
+  ``model.decode.replay`` (a replay's launch), both inside
+  ``model.decode.step`` (``models/qwen3_asr/step_graph.py``): replays over
+  steps is the share of steps run from a graph.
 
 A span's wall is the number the engine already reports for that interval,
 so no boundary is timed twice.

@@ -28,7 +28,11 @@ from light_whisper_tpu.models.qwen3_asr import model as ref_model
 from light_whisper_tpu.models.qwen3_asr.config import DecoderConfig
 from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
 from light_whisper_tpu_torch.models.qwen3_asr import model as port_model
+from light_whisper_tpu_torch.models.qwen3_asr import step_graph
+from light_whisper_tpu_torch.ops import _build
 from light_whisper_tpu_torch.ops import decode_attention as da
+from light_whisper_tpu_torch.ops import q8_matmul as q8
+from light_whisper_tpu_torch.runtime import tracing
 
 CFG = DecoderConfig(block_count=2, embedding_length=256, feed_forward_length=512, head_count=4,
                     head_count_kv=2, key_length=128, rms_epsilon=1e-6, rope_freq_base=1e6, vocab_size=128)
@@ -278,3 +282,255 @@ def test_decode_greedy_batch_stops_at_once_when_every_stream_starts_done(monkeyp
     tcache.set_positions([POS0, POS0])
     got = port_model._decode_greedy_batch(CFG, {}, torch.tensor([EOS, 3]), tcache, EOS, 6, budgets=[5, 0])
     assert (got == -1).all() and tcache.pos_host == [POS0, POS0]
+
+
+# -- the B=1 loop on the batched step ---------------------------------------------------
+
+PROMPT = 6
+NO_EOS = -1
+
+
+def _prompted(quantized: bool, seed: int, capacity: int = 32):
+    """Both packages' decoders after the same prompt: (jparams, tparams, jax
+    cache, torch cache, the port's first token)."""
+    jparams, tparams = _params(quantized, seed)
+    ej, et = _embeds((PROMPT, CFG.embedding_length), seed + 1)
+    _jh, jcache = ref_dec.forward(CFG, jparams, ej, ref_dec.init_cache(CFG, capacity))
+    tcache = dec.init_cache(CFG, capacity)
+    th = dec.forward(CFG, tparams, et, tcache)
+    return jparams, tparams, jcache, tcache, torch.argmax(dec.logits_for(CFG, tparams, th[-1:])[-1])
+
+
+def _copy(cache):
+    return dec.KVCache(k=cache.k.clone(), v=cache.v.clone(), pos=cache.pos)
+
+
+def _forward_loop(tparams, first, cache, eos, limit):
+    """The B=1 loop as it stepped before: ``forward`` at the host position,
+    one stream."""
+    out, token = [], first.reshape(1)
+    while int(token) != eos and len(out) < limit:
+        out.append(int(token))
+        if len(out) == limit:
+            break
+        hidden = dec.forward(CFG, tparams, dec.embed_tokens(tparams, token), cache)
+        token = torch.argmax(dec.logits_for(CFG, tparams, hidden[-1:])[-1]).reshape(1)
+    return out
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["q8_0", "dense"])
+@pytest.mark.parametrize("stop", ["eos", "budget", "max_new_tokens"])
+def test_decode_greedy_on_the_batched_step_matches_the_forward_loop_and_jax(quantized, stop):
+    """The same ids, cache contents and final ``cache.pos`` as the
+    single-stream loop it replaces, and the reference's ids and K/V rows."""
+    max_new = 10
+    jparams, tparams, jcache, tcache, first = _prompted(quantized, seed=11)
+    free = _forward_loop(tparams, first, _copy(tcache), NO_EOS, max_new)
+    eos, budget = NO_EOS, None
+    if stop == "eos":  # the first id that was not emitted before, from the second on
+        eos = next(t for i, t in enumerate(free) if i >= 1 and t not in free[:i])
+    elif stop == "budget":
+        budget = 4
+    limit = max_new if budget is None else budget
+    old = _copy(tcache)
+    want = _forward_loop(tparams, first, old, eos, limit)
+    got = dec.decode_greedy(CFG, tparams, first, tcache, eos, max_new, budget=budget)
+    assert got == want
+    assert len(got) == max_new if stop == "max_new_tokens" else len(got) < max_new
+    assert isinstance(tcache.pos, int) and tcache.pos == old.pos > PROMPT
+    assert torch.equal(tcache.k, old.k) and torch.equal(tcache.v, old.v)
+    tokens, count, jout = ref_dec.decode_greedy(CFG, jparams, jnp.int32(int(first)), jcache, eos, max_new,
+                                                budget=None if budget is None else jnp.int32(budget))
+    assert [int(t) for t in np.asarray(tokens)[: int(count)]] == got
+    for name in ("k", "v"):
+        torch.testing.assert_close(getattr(tcache, name)[:, :, PROMPT : tcache.pos].float(),
+                                   _to_torch(getattr(jout, name))[:, :, PROMPT : tcache.pos].float(),
+                                   atol=0.05, rtol=0.02)
+
+
+# -- the captured step's bookkeeping, with a stand-in for the CUDA graph ---------------
+
+SPANS = ("model.decode.step", "model.decode.capture", "model.decode.replay")
+
+
+class StandInGraph:
+    """``step_graph.CudaGraph``'s stand-in on the CPU. A capture here cannot
+    defer the body, so ``capture`` runs it and the replay right after does
+    nothing; a later replay runs the body and puts the launch counters back
+    as they were, since a replay counts nothing in Python."""
+
+    made: list = []
+
+    def __init__(self, device):
+        self.pending = self.released = False
+        StandInGraph.made.append(self)
+
+    def capture(self, body):
+        self.body = body
+        body()
+        self.pending = True
+
+    def replay(self):
+        if self.pending:
+            self.pending = False
+            return
+        counters = (da.LAUNCHES, q8.LAUNCHES)
+        before = [dict(c) for c in counters]
+        self.body()
+        for c, b in zip(counters, before):
+            c.update(b)
+
+    def release(self):
+        self.released = True
+
+
+@pytest.fixture
+def counted_on_cpu(monkeypatch):
+    """The CPU's plain batched attention and fused projections count a launch
+    each, as the card's wrappers do; no stand-in yet."""
+    for module, name, key in ((da, "decode_attention_batched_plain", "decode_attention_batched"),
+                              (q8, "q8_matmul_fused_plain", "q8_matmul_stacked_fused")):
+        real = getattr(module, name)
+
+        def counted(*a, _real=real, _module=module, _key=key, **kw):
+            _build.count_launch(_module.LAUNCHES, _key)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(module, name, counted)
+    StandInGraph.made = []
+
+
+def _stand_in(monkeypatch):
+    """The stand-in graph, and ``graphs_engage`` deciding as it would on a card."""
+    engage = dec.graphs_engage
+    monkeypatch.setattr(dec, "graphs_engage",
+                        lambda cfg, device, steps, tp=dec.Replicated: engage(cfg, torch.device("cuda"), steps, tp))
+    monkeypatch.setattr(step_graph, "CudaGraph", StandInGraph)
+
+
+def _observed(run):
+    """``run()``'s result, with the launch counts and span counts it added."""
+    launches0 = {**da.LAUNCHES, **q8.LAUNCHES}
+    spans0 = tracing.snapshot()
+    out = run()
+    spans1 = tracing.snapshot()
+    launches = {k: v - launches0[k] for k, v in {**da.LAUNCHES, **q8.LAUNCHES}.items()}
+    spans = {n: spans1.get(n, {"count": 0})["count"] - spans0.get(n, {"count": 0})["count"] for n in SPANS}
+    return out, launches, spans
+
+
+def _b1_run(tparams, first, cache):
+    return lambda: dec.decode_greedy(CFG, tparams, first, cache, NO_EOS, 7)
+
+
+def _batched_run(tparams, cache, budgets):
+    firsts = torch.tensor([3, 9, 17])
+    return lambda: port_model._decode_greedy_batch(CFG, tparams, firsts, cache, EOS, 7, budgets=budgets)
+
+
+@pytest.mark.parametrize("loop", ["b1", "batched"])
+def test_a_captured_step_is_replayed_every_step_and_counted_as_launched(counted_on_cpu, monkeypatch, loop):
+    """One capture a loop, every step a replay, the launch counters as an
+    eager loop leaves them, host positions one ahead a step, ``budgets=``
+    and the ``-1`` filling as before, and the graph released at the end."""
+    runs = []
+    for graphed in (False, True):
+        if graphed:
+            _stand_in(monkeypatch)
+        if loop == "b1":
+            _, tparams, _, tcache, first = _prompted(True, seed=21)
+            out, launches, spans = _observed(_b1_run(tparams, first, tcache))
+            state = (tcache.pos, tcache.k, tcache.v)
+        else:
+            _, tparams = _params(True, seed=22)
+            _, tcache = _caches([3, 17, 0], 32, seed=23)
+            out, launches, spans = _observed(_batched_run(tparams, tcache, [2, 8, 0]))
+            state = (tcache.pos_host, tcache.pos.tolist(), tcache.k, tcache.v)
+        runs.append((out, launches, spans, state))
+    (eager, eager_launches, eager_spans, eager_state), (got, launches, spans, state) = runs
+    steps = spans["model.decode.step"]
+    assert steps == eager_spans["model.decode.step"] == 6
+    assert eager_spans["model.decode.capture"] == eager_spans["model.decode.replay"] == 0
+    assert spans["model.decode.capture"] == 1 and spans["model.decode.replay"] == steps
+    assert len(StandInGraph.made) == 1 and StandInGraph.made[0].released
+    assert launches == eager_launches
+    assert launches["decode_attention_batched"] == CFG.block_count * steps
+    assert launches["q8_matmul_stacked_fused"] == 4 * CFG.block_count * steps
+    if loop == "b1":
+        assert got == eager and state[0] == eager_state[0] == PROMPT + steps
+    else:
+        np.testing.assert_array_equal(got, eager)
+        assert [int((row >= 0).sum()) for row in got] == [2, 7, 0]  # budgets, and -1 past each stream's end
+        assert state[0] == state[1] == eager_state[0] == [3 + steps, 17 + steps, steps]
+    assert all(torch.equal(a, b) for a, b in zip(state[-2:], eager_state[-2:]))
+
+
+class _MeshSeams:
+    """A one-rank mesh's seams: the identity, but not ``Replicated``."""
+
+    @staticmethod
+    def enter(x):
+        return x
+
+    @staticmethod
+    def reduce(x):
+        return x
+
+
+@pytest.mark.parametrize("case", ["cpu", "mesh", "f32", "fused_ffn", "one_step"])
+def test_the_step_stays_eager_where_graphs_do_not_engage(counted_on_cpu, monkeypatch, case):
+    """The CPU, a mesh, f32 compute, a loop of one step and (on the B=1 loop)
+    ``LWT_FUSED_FFN`` run eager: no capture, no replay. Every B=1 loop but the
+    fused-FFN one steps with the batched forward."""
+    cfg, tp = CFG, dec.Replicated
+    if case != "cpu":
+        _stand_in(monkeypatch)
+    else:
+        monkeypatch.setattr(step_graph, "CudaGraph", StandInGraph)
+    _, tparams = _params(True, seed=31)
+    if case == "mesh":
+        tp = _MeshSeams
+    elif case == "f32":
+        cfg = dataclasses.replace(CFG, compute_dtype="float32")
+        _, tparams = _params(False, seed=31)
+        tparams = jax.tree.map(lambda t: t.float() if t.is_floating_point() else t, tparams)
+    elif case == "fused_ffn":
+        monkeypatch.setenv("LWT_FUSED_FFN", "1")
+    batched_forwards = []
+    forward_decode_batch = dec.forward_decode_batch
+
+    def counted(cfg, params, x, cache, *args, **kwargs):
+        batched_forwards.append(x.shape[0])
+        return forward_decode_batch(cfg, params, x, cache, *args, **kwargs)
+
+    monkeypatch.setattr(dec, "forward_decode_batch", counted)
+    steps = 1 if case == "one_step" else 4
+    budget, budgets = (2, [1, 1]) if case == "one_step" else (None, None)  # one step in either loop
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    b1 = dec.init_cache(cfg, 32, dtype)
+    b1.pos = 4
+    batched = dec.init_cache_batch(cfg, 2, 32, dtype)
+    batched.set_positions([4, 9])
+    spans0 = tracing.snapshot()
+    first = dec.decode_greedy(cfg, tparams, torch.tensor(5), b1, NO_EOS, 5, budget=budget, tp=tp)
+    assert batched_forwards == ([] if case == "fused_ffn" else [1] * steps)
+    loops = [("b1", first)]
+    if case != "fused_ffn":  # the opt-in is the B=1 loop's; the batched loop never takes it
+        loops.append(("batched", port_model._decode_greedy_batch(cfg, tparams, torch.tensor([5, 6]), batched,
+                                                                  EOS, 5, budgets=budgets, tp=tp)))
+    spans1 = tracing.snapshot()
+    count = {n: spans1.get(n, {"count": 0})["count"] - spans0.get(n, {"count": 0})["count"] for n in SPANS}
+    assert count["model.decode.step"] == steps * len(loops)
+    assert count["model.decode.capture"] == count["model.decode.replay"] == 0 and not StandInGraph.made
+    assert b1.pos == 4 + steps and len(first) == steps + 1
+    if case != "fused_ffn":
+        assert batched.pos_host == batched.pos.tolist() == [4 + steps, 9 + steps]
+
+
+def test_graphs_engage_on_a_card_unmeshed_in_bf16_for_two_steps_or_more():
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert dec.graphs_engage(CFG, cuda, 2) is True
+    assert dec.graphs_engage(CFG, cpu, 2) is False
+    assert dec.graphs_engage(CFG, cuda, 2, _MeshSeams) is False
+    assert dec.graphs_engage(dataclasses.replace(CFG, compute_dtype="float32"), cuda, 2) is False
+    assert dec.graphs_engage(CFG, cuda, 1) is False and dec.graphs_engage(CFG, cuda, 0) is False

@@ -534,3 +534,246 @@ def test_fused_ffn_step_refuses_f_not_a_multiple_of_64(cuda):
     gq, gs, dq, ds = _ffn_weights(64, 96, cuda)
     with pytest.raises(ValueError, match="multiple of 64"):
         ffn.fused_ffn_step(torch.zeros(1, 64, device=cuda), torch.ones(64, device=cuda), gq, gs, dq, ds, 0)
+
+
+# -- the decode step as a captured CUDA graph -------------------------------------------
+
+GRAPH_BUDGET = 24
+
+
+@pytest.fixture(scope="module")
+def tiny_model(tmp_path_factory):
+    """The multi-device dry run's serving model (heads of 128, Q8_0), random
+    from seed 0, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from light_whisper_tpu_torch.models.qwen3_asr import synthetic
+    from light_whisper_tpu_torch.models.qwen3_asr.model import Qwen3ASRModel
+    from light_whisper_tpu_torch.parallel.dryrun import tiny_config
+
+    path = str(tmp_path_factory.mktemp("graph") / "tiny-q8.gguf")
+    synthetic.write_model(path, tiny_config(), seed=0, quantize=True)
+    return Qwen3ASRModel(path, device="cuda", max_new_tokens=GRAPH_BUDGET)
+
+
+def _launch_counts():
+    return {**q8.LAUNCHES, **da.LAUNCHES, **fp.LAUNCHES, **ffn.LAUNCHES}
+
+
+def _span_counts():
+    from light_whisper_tpu_torch.runtime import tracing
+
+    snap = tracing.snapshot()
+    return {n: snap.get(n, {"count": 0})["count"] for n in ("model.decode.step", "model.decode.capture",
+                                                             "model.decode.replay")}
+
+
+def _delta(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _run(fn, graphs: bool, monkeypatch):
+    """``fn()`` with the step captured (the card's default) or eager; its
+    result, the launches it counted and the spans it added."""
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+
+    with monkeypatch.context() as m:
+        if not graphs:
+            m.setattr(dec, "graphs_engage", lambda *args: False)
+        launches, spans = _launch_counts(), _span_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _delta(launches, _launch_counts()), _delta(spans, _span_counts())
+
+
+def _prompt_cache(model, seed, batch=None):
+    """A decoder cache after a prompt of random embeddings: one stream's
+    ``KVCache`` (``batch`` None) or ``batch`` streams' ``BatchKVCache``."""
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+
+    cfg = model.config.decoder
+    gen = torch.Generator().manual_seed(seed)
+    if batch is None:
+        cache = dec.init_cache(cfg, 1024, device="cuda")
+        embeds = torch.randn(40, cfg.embedding_length, generator=gen).to("cuda", torch.bfloat16)
+        hidden = dec.forward(cfg, model.decoder_params, embeds, cache)
+        return cache, torch.argmax(dec.logits_for(cfg, model.decoder_params, hidden[-1:])[-1])
+    cache = dec.init_cache_batch(cfg, batch, 1024, device="cuda")
+    embeds = torch.randn(batch, 40, cfg.embedding_length, generator=gen).to("cuda", torch.bfloat16)
+    hidden = dec.forward_prefill_batch(cfg, model.decoder_params, embeds, cache)
+    cache.set_positions([40 - 3 * b for b in range(batch)])  # streams at their own positions
+    return cache, torch.argmax(dec.logits_for(cfg, model.decoder_params, hidden[:, -1]), dim=-1)
+
+
+def _clone(cache):
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+
+    if isinstance(cache, dec.KVCache):
+        return dec.KVCache(k=cache.k.clone(), v=cache.v.clone(), pos=cache.pos)
+    out = dec.BatchKVCache(k=cache.k.clone(), v=cache.v.clone(), pos=torch.zeros(0), pos_host=[])
+    out.set_positions(cache.pos_host)
+    return out
+
+
+@pytest.mark.parametrize("budget", [None, 9])
+def test_graph_loop_b1_matches_the_eager_loops(tiny_model, monkeypatch, budget):
+    """The captured B=1 loop gives the eager batched step's ids, cache and
+    launches, and the ids and cache of the single-stream ``forward`` loop it
+    replaced (the batched attention at B=1 takes the stacked one's split)."""
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+
+    cfg, params = tiny_model.config.decoder, tiny_model.decoder_params
+    cache, first = _prompt_cache(tiny_model, seed=1)
+    caches = [_clone(cache), _clone(cache), _clone(cache)]
+    eos = -1
+
+    def loop(c):
+        return lambda: dec.decode_greedy(cfg, params, first, c, eos, GRAPH_BUDGET, budget=budget)
+
+    got, launches, spans = _run(loop(caches[0]), True, monkeypatch)
+    eager, eager_launches, eager_spans = _run(loop(caches[1]), False, monkeypatch)
+    steps = (budget or GRAPH_BUDGET) - 1
+    assert got == eager and len(got) == steps + 1
+    assert spans == {"model.decode.step": steps, "model.decode.capture": 1, "model.decode.replay": steps}
+    assert eager_spans["model.decode.capture"] == eager_spans["model.decode.replay"] == 0
+    assert launches == eager_launches and launches["decode_attention_batched"] == cfg.block_count * steps
+    assert launches["decode_attention"] == 0
+    old, token = caches[2], first.reshape(1)
+    want = [int(first)]
+    for _ in range(steps):
+        hidden = dec.forward(cfg, params, dec.embed_tokens(params, token), old)
+        token = torch.argmax(dec.logits_for(cfg, params, hidden[-1:])[-1]).reshape(1)
+        want.append(int(token))
+    assert got == want
+    for c in caches[1:]:
+        assert c.pos == caches[0].pos == 40 + steps
+        assert torch.equal(c.k, caches[0].k) and torch.equal(c.v, caches[0].v)
+
+
+def test_graph_loop_batched_with_budgets_matches_the_eager_loop(tiny_model, monkeypatch):
+    from light_whisper_tpu_torch.models.qwen3_asr.model import _decode_greedy_batch
+
+    cfg, params = tiny_model.config.decoder, tiny_model.decoder_params
+    cache, firsts = _prompt_cache(tiny_model, seed=2, batch=7)
+    caches = [_clone(cache), _clone(cache)]
+    budgets = [3, 24, 0, 11, 1, 24, 17]
+
+    def loop(c):
+        return lambda: _decode_greedy_batch(cfg, params, firsts, c, -1, GRAPH_BUDGET, budgets=budgets)
+
+    got, launches, spans = _run(loop(caches[0]), True, monkeypatch)
+    eager, eager_launches, _ = _run(loop(caches[1]), False, monkeypatch)
+    np.testing.assert_array_equal(got, eager)
+    assert [int((row >= 0).sum()) for row in got] == [min(b, GRAPH_BUDGET) for b in budgets]
+    steps = GRAPH_BUDGET - 1
+    assert spans == {"model.decode.step": steps, "model.decode.capture": 1, "model.decode.replay": steps}
+    assert launches == eager_launches and launches["decode_attention_batched"] == cfg.block_count * steps
+    assert caches[0].pos_host == caches[1].pos_host == caches[0].pos.tolist() == caches[1].pos.tolist()
+    assert torch.equal(caches[0].k, caches[1].k) and torch.equal(caches[0].v, caches[1].v)
+
+
+def test_captures_beside_threads_that_launch(tiny_model, monkeypatch):
+    """A capture completes while another thread launches kernels and
+    allocates, on its own stream and on its default one, and two loops
+    capture and replay at once on two threads: every loop gives the eager
+    loop's ids."""
+    import threading
+
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+
+    cfg, params = tiny_model.config.decoder, tiny_model.decoder_params
+    cache, first = _prompt_cache(tiny_model, seed=3)
+    want, _, _ = _run(lambda: dec.decode_greedy(cfg, params, first, _clone(cache), -1, GRAPH_BUDGET), False,
+                      monkeypatch)
+    stop = threading.Event()
+
+    def busy(own_stream: bool):
+        a = torch.randn(1024, 1024, device="cuda")
+        stream = torch.cuda.Stream() if own_stream else torch.cuda.current_stream()
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                a = torch.tanh(a @ a)
+                torch.empty(1 << 20, device="cuda")
+        stream.synchronize()
+
+    results, errors = [], []
+
+    def loop():
+        try:
+            results.append(dec.decode_greedy(cfg, params, first, _clone(cache), -1, GRAPH_BUDGET))
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    workers = [threading.Thread(target=busy, args=(own,)) for own in (True, False)]
+    for w in workers:
+        w.start()
+    try:
+        for _round in range(3):
+            loops = [threading.Thread(target=loop) for _ in range(2)]
+            for t in loops:
+                t.start()
+            for t in loops:
+                t.join()
+    finally:
+        stop.set()
+        for w in workers:
+            w.join()
+    assert not errors, errors
+    assert results == [want] * 6
+
+
+def test_short_loops_end_while_other_threads_capture(tiny_model, monkeypatch):
+    """Loops of two steps on three threads at once, each capturing, replaying
+    and releasing its graph and pool while the others capture: a release
+    waits for a capture (freeing a pool syncs, which a capture forbids), and
+    every loop gives the eager loop's ids."""
+    import threading
+
+    from light_whisper_tpu_torch.models.qwen3_asr import decoder as dec
+
+    cfg, params = tiny_model.config.decoder, tiny_model.decoder_params
+    cache, first = _prompt_cache(tiny_model, seed=5)
+    want, _, _ = _run(lambda: dec.decode_greedy(cfg, params, first, _clone(cache), -1, GRAPH_BUDGET, budget=3),
+                      False, monkeypatch)
+    spans0 = _span_counts()
+    results, errors = [], []
+
+    def loops():
+        try:
+            for _ in range(20):
+                results.append(dec.decode_greedy(cfg, params, first, _clone(cache), -1, GRAPH_BUDGET, budget=3))
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=loops) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(want) == 3 and results == [want] * 60
+    spans = _delta(spans0, _span_counts())
+    assert spans == {"model.decode.step": 120, "model.decode.capture": 60, "model.decode.replay": 120}
+
+
+def test_transcribe_paths_give_the_eager_tokens_and_release_their_graphs(tiny_model, monkeypatch):
+    """``transcribe`` and ``transcribe_batch`` (B=7) serve the eager loops'
+    tokens; a loop's graph and pool go when it ends, so the card's reserved
+    memory does not grow loop after loop."""
+    rng = np.random.default_rng(4)
+    clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32) for s in (1.0, 1.5, 2.0, 1.0, 3.0,
+                                                                                        2.5, 1.0)]
+    single, _, spans = _run(lambda: [tiny_model.transcribe(c).tokens for c in clips], True, monkeypatch)
+    assert spans["model.decode.capture"] == len(clips)
+    eager, _, _ = _run(lambda: [tiny_model.transcribe(c).tokens for c in clips], False, monkeypatch)
+    assert single == eager
+    batch, _, spans = _run(lambda: [r.tokens for r in tiny_model.transcribe_batch(clips)], True, monkeypatch)
+    eager_batch, _, _ = _run(lambda: [r.tokens for r in tiny_model.transcribe_batch(clips)], False, monkeypatch)
+    assert batch == eager_batch and spans["model.decode.capture"] == 1
+    tiny_model.transcribe(clips[0])
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(6):
+        tiny_model.transcribe(clips[0])
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() - reserved < 8 << 20
