@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     runner.set_cache_dirs(root)
     sys.path.insert(0, root)
     seeds = [int(s) for s in args.seeds.split(",")]
-    path = runner.artifact.ensure(root, cell.config_name, cell.config, device)
+    path = runner.artifact.ensure(root, cell, device)
     engine, wire = runner.start_engine(cell, path, device)
     rid = runner.warm_up(wire, traffic_mod.generate(cell.traffic, seeds[0]), int(cell.traffic["warm_up_rounds"]),
                          1000)

@@ -1,13 +1,19 @@
-"""Qwen3-ASR weights from a seed, and the Q8_0 GGUF artifact the engine loads.
+"""Weights from a seed, and the Q8_0 GGUF artifact the engine loads.
+
+What every architecture shares lives here: the per-index seeded drawing,
+the Q8_0 layout, the vocabulary and the prompt, the AuT audio tower's
+tensors and sizes, and the GGUF writer. An architecture's module
+(``archs/<arch>.py``) gives its decoder's sizes, tensors and metadata.
 
 Every tensor is drawn on the device by its own ``torch.Generator``, seeded
 from the configuration's ``weights_seed`` and the tensor's index, so the
 writer and the plain reference draw the same numbers without either reading
 the other's output. Q8_0 matrices are drawn as they are stored: int8 quants
 uniform on [-127, 127] and one float16 scale per 32-wide block, no float32
-detour. The embedding rows of the 256 byte tokens and of the special tokens
-are drawn at 1/16 of the scale, so greedy decoding never emits them: every
-served token then names itself in the reply's text (:func:`token_text`).
+detour. In a matrix whose rows are the vocabulary (kind ``q8_vocab``) the
+rows of the 256 byte tokens and of the special tokens are drawn at 1/16 of
+the scale, so greedy decoding never emits them: every served token then
+names itself in the reply's text (:func:`token_text`).
 
 The artifact is written once per checkout to ``build/benchmark_torch/`` and
 read by the engine's own loader; names, layouts and metadata are those of
@@ -37,18 +43,13 @@ TOKEN_RE = re.compile(r"<(\d{6})>")
 
 @dataclasses.dataclass(frozen=True)
 class Shapes:
-    """The sizes of a configuration file, under the names the code uses."""
+    """The sizes every architecture shares, under the names the code uses:
+    the vocabulary and its special ids, the decoder's width (the audio rows
+    are spliced into its embeddings) and the AuT tower. An architecture's
+    module extends it with its decoder's sizes."""
 
     vocab: int
     d: int
-    layers: int
-    heads: int
-    kv_heads: int
-    head_dim: int
-    ffn: int
-    rms_eps: float
-    rope_theta: float
-    context: int
     mels: int
     a_d: int
     a_layers: int
@@ -81,10 +82,6 @@ class Shapes:
     def freq_after_conv(self) -> int:
         return conv_out_len(self.mels)
 
-    @property
-    def qkv_dim(self) -> int:
-        return (self.heads + 2 * self.kv_heads) * self.head_dim
-
 
 def conv_out_len(n: int) -> int:
     for _ in range(3):
@@ -92,13 +89,11 @@ def conv_out_len(n: int) -> int:
     return n
 
 
-def shapes(cfg: Dict) -> Shapes:
+def shared_sizes(cfg: Dict) -> Dict[str, object]:
+    """The :class:`Shapes` fields of a configuration file, as keyword arguments."""
     a = cfg["audio"]
-    return Shapes(
-        vocab=cfg["vocab_size"], d=cfg["hidden_size"], layers=cfg["num_hidden_layers"],
-        heads=cfg["num_attention_heads"], kv_heads=cfg["num_key_value_heads"], head_dim=cfg["head_dim"],
-        ffn=cfg["intermediate_size"], rms_eps=float(cfg["rms_norm_eps"]), rope_theta=float(cfg["rope_theta"]),
-        context=cfg["max_position_embeddings"], mels=a["num_mel_bins"], a_d=a["d_model"],
+    return dict(
+        vocab=cfg["vocab_size"], d=cfg["hidden_size"], mels=a["num_mel_bins"], a_d=a["d_model"],
         a_layers=a["encoder_layers"], a_heads=a["encoder_attention_heads"], a_ffn=a["encoder_ffn_dim"],
         a_hidden=a["downsample_hidden_size"], a_out=a["output_dim"], n_window=a["n_window"],
         n_window_infer=a["n_window_infer"], a_positions=a["max_source_positions"], ln_eps=float(a["layer_norm_eps"]),
@@ -115,28 +110,22 @@ def special_ids(s: Shapes) -> List[int]:
 # the tensors: (name, shape, kind, std), in a fixed order
 
 
-def tensor_specs(s: Shapes) -> List[Tuple[str, Tuple[int, ...], str, float]]:
-    """Every tensor of the artifact. ``kind``: ``q8`` (a matrix [out, in]),
-    ``norm`` (1 + std * N), ``bias`` (std * N) or ``dense`` (std * N)."""
-    specs = [("token_embd.weight", (s.vocab, s.d), "q8", 0.05), ("output_norm.weight", (s.d,), "norm", 0.05)]
-    q, kv = s.heads * s.head_dim, s.kv_heads * s.head_dim
-    for i in range(s.layers):
-        p = f"blk.{i}."
-        specs += [
-            (p + "attn_norm.weight", (s.d,), "norm", 0.05),
-            (p + "attn_q.weight", (q, s.d), "q8", s.d ** -0.5),
-            (p + "attn_k.weight", (kv, s.d), "q8", s.d ** -0.5),
-            (p + "attn_v.weight", (kv, s.d), "q8", s.d ** -0.5),
-            (p + "attn_output.weight", (s.d, q), "q8", q ** -0.5),
-            (p + "attn_q_norm.weight", (s.head_dim,), "norm", 0.05),
-            (p + "attn_k_norm.weight", (s.head_dim,), "norm", 0.05),
-            (p + "ffn_norm.weight", (s.d,), "norm", 0.05),
-            (p + "ffn_gate.weight", (s.ffn, s.d), "q8", s.d ** -0.5),
-            (p + "ffn_up.weight", (s.ffn, s.d), "q8", s.d ** -0.5),
-            (p + "ffn_down.weight", (s.d, s.ffn), "q8", s.ffn ** -0.5),
-        ]
+def is_q8(kind: str) -> bool:
+    return kind in ("q8", "q8_vocab")
+
+
+def specs(arch, s: Shapes) -> List[Tuple[str, Tuple[int, ...], str, float]]:
+    """Every tensor of the artifact: the architecture's decoder, then the
+    tower. ``kind``: ``q8`` (a matrix [out, in]), ``q8_vocab`` (one whose
+    rows are the vocabulary), ``norm`` (1 + std * N), ``bias`` (std * N) or
+    ``dense`` (std * N)."""
+    return arch.tensor_specs(s) + tower_specs(s)
+
+
+def tower_specs(s: Shapes) -> List[Tuple[str, Tuple[int, ...], str, float]]:
+    """The AuT audio tower's tensors."""
     h, ad = s.a_hidden, s.a_d
-    specs += [
+    specs = [
         ("aenc.conv1.weight", (h, 1, 3, 3), "dense", 0.2),
         ("aenc.conv1.bias", (h,), "bias", 0.02),
         ("aenc.conv2.weight", (h, h, 3, 3), "dense", 0.2 / np.sqrt(h)),
@@ -170,16 +159,16 @@ def _generator(weights_seed: int, index: int, device) -> torch.Generator:
 
 
 def draw(s: Shapes, weights_seed: int, index: int, spec, device):
-    """The tensor ``spec`` (the ``index``-th of :func:`tensor_specs`) on
-    ``device``: ``(int8 quants, float16 scales)`` for ``q8``, float32 else."""
-    name, shape, kind, std = spec
+    """The tensor ``spec`` (the ``index``-th of :func:`specs`) on ``device``:
+    ``(int8 quants, float16 scales)`` for a Q8 kind, float32 else."""
+    _name, shape, kind, std = spec
     gen = _generator(weights_seed, index, device)
-    if kind == "q8":
+    if is_q8(kind):
         out_f, in_f = shape
         quants = torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
         jitter = 0.75 + 0.5 * torch.rand((out_f, in_f // Q8_BLOCK), generator=gen, device=device)
         scales = jitter * (std / UNIFORM_Q_STD)
-        if name == "token_embd.weight":
+        if kind == "q8_vocab":
             small = torch.tensor(list(range(256)) + special_ids(s), device=device)
             scales[small] *= SMALL_ROW_SCALE
         return quants, scales.to(torch.float16)
@@ -194,14 +183,15 @@ def dequantize(quants: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return w.reshape(out_f, in_f)
 
 
-def named(s: Shapes, weights_seed: int, device, names) -> Dict[str, torch.Tensor]:
-    """Only the tensors ``names``, float32 (Q8 dequantized), drawn on ``device``."""
+def named(s: Shapes, all_specs, weights_seed: int, device, names) -> Dict[str, torch.Tensor]:
+    """Only the tensors ``names`` of ``all_specs`` (:func:`specs`), float32
+    (Q8 dequantized), drawn on ``device``."""
     want = set(names)
     out = {}
-    for index, spec in enumerate(tensor_specs(s)):
+    for index, spec in enumerate(all_specs):
         if spec[0] in want:
             t = draw(s, weights_seed, index, spec, device)
-            out[spec[0]] = dequantize(*t) if spec[2] == "q8" else t
+            out[spec[0]] = dequantize(*t) if is_q8(spec[2]) else t
     return out
 
 
@@ -279,16 +269,10 @@ def _kv(key: str, value) -> bytes:
     return out + struct.pack("<IIQ", 9, 8, len(value)) + b"".join(_str(v) for v in value)
 
 
-def metadata(s: Shapes) -> Dict[str, object]:
-    a = "qwen3asr."
-    tokens, types = vocabulary(s)
+def shared_metadata(prefix: str, s: Shapes) -> Dict[str, object]:
+    """The tower's and the special ids' keys under an architecture's ``prefix``."""
+    a = prefix
     return {
-        "general.architecture": "qwen3asr", "general.name": "qwen3-asr-benchmark",
-        a + "vocab_size": s.vocab, a + "embedding_length": s.d, a + "block_count": s.layers,
-        a + "feed_forward_length": s.ffn, a + "attention.head_count": s.heads,
-        a + "attention.head_count_kv": s.kv_heads, a + "attention.key_length": s.head_dim,
-        a + "attention.layer_norm_rms_epsilon": s.rms_eps, a + "rope.freq_base": s.rope_theta,
-        a + "context_length": s.context, a + "tie_word_embeddings": True,
         a + "audio.num_mel_bins": s.mels, a + "audio.d_model": s.a_d, a + "audio.block_count": s.a_layers,
         a + "audio.head_count": s.a_heads, a + "audio.feed_forward_length": s.a_ffn,
         a + "audio.downsample_hidden_size": s.a_hidden, a + "audio.output_dim": s.a_out,
@@ -296,6 +280,14 @@ def metadata(s: Shapes) -> Dict[str, object]:
         a + "audio.max_source_positions": s.a_positions, a + "audio.layer_norm_epsilon": s.ln_eps,
         a + "audio_token_id": s.audio_id, a + "bos_token_id": s.bos_id, a + "eos_token_id": s.eos_id,
         a + "pad_token_id": s.pad_id,
+    }
+
+
+def metadata(arch, s: Shapes) -> Dict[str, object]:
+    """The architecture's keys, then the vocabulary's and the prompt's."""
+    tokens, types = vocabulary(s)
+    return {
+        **arch.metadata(s),
         "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.token_type": types, "tokenizer.ggml.merges": [],
         "tokenizer.chat_template": TEMPLATE,
     }
@@ -303,11 +295,11 @@ def metadata(s: Shapes) -> Dict[str, object]:
 
 def _nbytes(shape, kind) -> int:
     n = int(np.prod(shape))
-    return n // Q8_BLOCK * Q8_BLOCK_BYTES if kind == "q8" else n * 4
+    return n // Q8_BLOCK * Q8_BLOCK_BYTES if is_q8(kind) else n * 4
 
 
 def _payload(t, kind) -> bytes:
-    if kind == "q8":
+    if is_q8(kind):
         quants, scales = t
         blocks = torch.cat([scales.reshape(-1, 1).view(torch.uint8).reshape(-1, 2),
                             quants.reshape(-1, Q8_BLOCK).view(torch.uint8)], dim=1)
@@ -315,36 +307,37 @@ def _payload(t, kind) -> bytes:
     return t.float().cpu().numpy().astype("<f4").tobytes()
 
 
-def write(path: str, s: Shapes, weights_seed: int, device) -> None:
+def write(path: str, arch, s: Shapes, weights_seed: int, device) -> None:
     """Write the artifact to ``path`` (through a side file renamed at the end)."""
-    specs = tensor_specs(s)
-    meta = metadata(s)
-    head = bytearray(struct.pack("<IIQQ", 0x46554747, 3, len(specs), len(meta) + 1))
+    all_specs = specs(arch, s)
+    meta = metadata(arch, s)
+    head = bytearray(struct.pack("<IIQQ", 0x46554747, 3, len(all_specs), len(meta) + 1))
     head += _str("general.alignment") + struct.pack("<II", 4, ALIGN)
     for key, value in meta.items():
         head += _kv(key, value)
     offset = 0
-    for name, shape, kind, _std in specs:
+    for name, shape, kind, _std in all_specs:
         ne = tuple(reversed(shape))
         head += _str(name) + struct.pack("<I", len(ne)) + b"".join(struct.pack("<Q", d) for d in ne)
-        head += struct.pack("<IQ", GGML_Q8_0 if kind == "q8" else GGML_F32, offset)
+        head += struct.pack("<IQ", GGML_Q8_0 if is_q8(kind) else GGML_F32, offset)
         offset += -(-_nbytes(shape, kind) // ALIGN) * ALIGN
     os.makedirs(os.path.dirname(path), exist_ok=True)
     side = f"{path}.{os.getpid()}.part"
     with open(side, "wb") as f:
         f.write(head)
         f.write(b"\0" * (-len(head) % ALIGN))
-        for index, spec in enumerate(specs):
+        for index, spec in enumerate(all_specs):
             data = _payload(draw(s, weights_seed, index, spec, device), spec[2])
             f.write(data)
             f.write(b"\0" * (-len(data) % ALIGN))
     os.replace(side, path)
 
 
-def ensure(root: str, config_name: str, cfg: Dict, device) -> str:
-    """The configuration's artifact under ``root/build/benchmark_torch/``,
-    written on the first call in a checkout."""
-    path = os.path.join(root, "build", "benchmark_torch", f"{config_name}-w{cfg['weights_seed']}.gguf")
+def ensure(root: str, cell, device) -> str:
+    """The cell's artifact under ``root/build/benchmark_torch/``, written by
+    its configuration's architecture on the first call in a checkout."""
+    cfg = cell.config
+    path = os.path.join(root, "build", "benchmark_torch", f"{cell.config_name}-w{cfg['weights_seed']}.gguf")
     if not os.path.isfile(path):
-        write(path, shapes(cfg), cfg["weights_seed"], device)
+        write(path, cell.arch, cell.arch.shapes(cfg), cfg["weights_seed"], device)
     return path

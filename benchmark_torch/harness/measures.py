@@ -2,17 +2,20 @@
 
 A reader (``metrics/<name>.py``) takes a :class:`Record` and returns a number,
 or ``None`` where the run holds nothing for it to read; where a count that a
-roofline rests on disagrees with the program's own, it says why on standard
-error and returns ``None``.
+roofline rests on disagrees with the program's own, or the record's
+architecture module has no such count, it says why on standard error and
+returns ``None``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import statistics
 import sys
-from typing import Dict, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -25,7 +28,8 @@ RATE = 16_000
 @dataclasses.dataclass
 class Record:
     cell: str
-    shapes: Shapes
+    shapes: Shapes  # the architecture's (``arch.shapes`` of the configuration)
+    arch: ModuleType  # archs/<arch>.py: the counts that the readers take
     budget: int  # tokens every request decodes (random weights never emit EOS)
     seconds: float  # the measured window
     setup_s: float
@@ -56,6 +60,16 @@ class Record:
 
 def note(msg: str) -> None:
     print(f"benchmark: {msg}", file=sys.stderr, flush=True)
+
+
+def counts(record: Record, metric: str, *names: str) -> Optional[List[Callable]]:
+    """The architecture's count functions ``names``, or ``None`` (with the
+    reason) where its module has one of them not."""
+    missing = [n for n in names if not callable(getattr(record.arch, n, None))]
+    if missing:
+        note(f"no {metric}: archs/{os.path.basename(record.arch.__file__)} has no {', '.join(missing)}")
+        return None
+    return [getattr(record.arch, n) for n in names]
 
 
 def ok(req) -> bool:
@@ -109,9 +123,11 @@ def step_lists(record: Record) -> List[list]:
 
 def mfu_percent(record: Record) -> Optional[float]:
     served = record.served()
-    if not served:
+    fns = counts(record, "mfu", "request_flops") if served else None
+    if fns is None:
         return None
-    flops = sum(work.request_flops(record.shapes, speech_samples(r), record.budget) for r in served)
+    request_flops, = fns
+    flops = sum(request_flops(record.shapes, speech_samples(r), record.budget) for r in served)
     return 100.0 * flops / (record.effective_seconds() * work.BF16_FLOPS_PER_S)
 
 
@@ -125,30 +141,35 @@ def slice_groups(record: Record) -> Optional[Dict[str, int]]:
     sl = record.slice
     if sl is None or not sl.requests:
         return None
+    fns = counts(record, "roofline", "stacked_launches", "q8_matmul_launches", "gemv_launches",
+                 "decode_attention_launches")
+    if fns is None:
+        return None
+    stacked_launches, q8_matmul_launches, gemv_launches, decode_attention_launches = fns
     s, d = record.shapes, sl.launches
-    per = 4 * s.layers
+    per = stacked_launches(s)
     forwards, prefills = d.get("q8_matmul_stacked_fused", 0), d.get("q8_matmul_stacked", 0)
-    encoder = 3 + 6 * s.a_layers  # conv_out, six linears a layer, proj1, proj2
     checks = [
         (forwards % per == 0 and prefills % per == 0,
          f"stacked launches {forwards}/{prefills} are not whole passes of {per}"),
     ]
     forwards, prefills = forwards // per, prefills // per
     n = len(sl.requests)
+    plain, gemv, attention = (q8_matmul_launches(s, forwards, prefills), gemv_launches(s, forwards, prefills),
+                              decode_attention_launches(s, forwards))
     checks += [
         (forwards == (record.budget - 1) * prefills,
          f"{forwards} decode forwards for {prefills} prefills of a {record.budget}-token budget"),
         (0 < prefills <= n, f"{prefills} prefills for {n} requests in the slice"),
         (all(len(r.tokens or []) == record.budget for r in sl.requests), "a slice request decoded fewer tokens"),
-        (d.get("q8_matmul", 0) == encoder * prefills + forwards + prefills,
-         f"q8_matmul launches {d.get('q8_matmul', 0)}, reckoned {encoder * prefills + forwards + prefills}"),
-        (sl.count_of("q8_gemv_kernel") == work.gemv_launches(s, forwards, prefills),
-         f"traced GEMV launches {sl.count_of('q8_gemv_kernel')}, reckoned {work.gemv_launches(s, forwards, prefills)}"),
+        (d.get("q8_matmul", 0) == plain, f"q8_matmul launches {d.get('q8_matmul', 0)}, reckoned {plain}"),
+        (sl.count_of("q8_gemv_kernel") == gemv,
+         f"traced GEMV launches {sl.count_of('q8_gemv_kernel')}, reckoned {gemv}"),
         (sl.count_of("q8_gemv_kernel") + sl.count_of("q8_tile_kernel") == sum(
             d.get(k, 0) for k in ("q8_matmul", "q8_matmul_stacked", "q8_matmul_stacked_fused")),
          "traced Q8 launches differ from the program's counters"),
-        (sl.count_of("attention_small_kernel") == s.layers * forwards,
-         f"traced decode-attention launches {sl.count_of('attention_small_kernel')}, reckoned {s.layers * forwards}"),
+        (sl.count_of("attention_small_kernel") == attention,
+         f"traced decode-attention launches {sl.count_of('attention_small_kernel')}, reckoned {attention}"),
         (sl.count_of("attention_small_kernel") + sl.count_of("attention_mma_kernel") == sum(
             d.get(k, 0) for k in ("decode_attention", "decode_attention_batched", "decode_attention_unstacked")),
          "traced attention launches differ from the program's counters"),
@@ -163,11 +184,13 @@ def slice_groups(record: Record) -> Optional[Dict[str, int]]:
 def gemv_roofline(record: Record) -> Optional[float]:
     g = slice_groups(record)
     time_s = record.slice.time_of("q8_gemv_kernel") if g else 0.0
-    if not g or time_s <= 0:
+    fns = counts(record, "gemv_roofline", "gemv_step_bytes", "head_bytes") if g and time_s > 0 else None
+    if fns is None:
         return None
+    gemv_step_bytes, head_bytes = fns
     s = record.shapes
-    w_step, row_step = work.gemv_step_bytes(s)
-    w_head, row_head = work.head_bytes(s)
+    w_step, row_step = gemv_step_bytes(s)
+    w_head, row_head = head_bytes(s)
     rows = (record.budget - 1) * g["requests"]
     nbytes = g["forwards"] * w_step + rows * row_step + g["prefills"] * w_head + g["requests"] * row_head
     return 100.0 * nbytes / work.HBM_BYTES_PER_S / time_s
@@ -176,10 +199,12 @@ def gemv_roofline(record: Record) -> Optional[float]:
 def attention_roofline(record: Record) -> Optional[float]:
     g = slice_groups(record)
     time_s = record.slice.time_of("attention_small_kernel") if g else 0.0
-    if not g or time_s <= 0:
+    fns = counts(record, "attention_roofline", "decode_attention_bytes") if g and time_s > 0 else None
+    if fns is None:
         return None
+    decode_attention_bytes, = fns
     s = record.shapes
-    nbytes = sum(work.decode_attention_bytes(s, work.prompt_len(s, speech_samples(r)), record.budget - 1)
+    nbytes = sum(decode_attention_bytes(s, work.prompt_len(s, speech_samples(r)), record.budget - 1)
                  for r in record.slice.requests)
     return 100.0 * nbytes / work.HBM_BYTES_PER_S / time_s
 

@@ -1,10 +1,11 @@
-"""Plain Qwen3-ASR in float32: what the engine should have computed for a
+"""The plain reference in float32: what the engine should have computed for a
 request, written from the architecture with nothing of the program.
 
 Audio → FireRedVAD trim (:mod:`harness.vad_ref`) → Whisper log-mel (128
-bins) → AuT encoder → prompt with the audio rows spliced in → Qwen3 decoder
-(causal, one pass over the prompt and the served tokens) → tied logits head.
-Weights are the configuration's, drawn anew from its seed
+bins) → AuT encoder → prompt with the audio rows spliced in → the
+configuration's decoder (its architecture's ``decoder_logits``, in
+``archs/<arch>.py``: causal, one pass over the prompt and the served tokens)
+→ logits. Weights are the configuration's, drawn anew from its seed
 (:mod:`harness.artifact`) and dequantized exactly (quant × float16 scale).
 Float32 throughout, TF32 off for matmuls and convolutions; the work runs
 layer by layer over all requests, so one layer's weights are held at a time.
@@ -25,6 +26,7 @@ else changes: the residual stream, attention and the norms stay float32.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Sequence
 
@@ -75,9 +77,21 @@ def fp8_rows(x: torch.Tensor) -> torch.Tensor:
     return (x / scale).to(torch.float8_e4m3fn).float() * scale
 
 
+@dataclasses.dataclass
+class Prompt:
+    """One request's decoder input, for an architecture's ``decoder_logits``."""
+
+    ids: List[int]  # the chat template's ids with the served tokens but the last
+    audio_at: int  # the row where the audio rows go
+    audio: Dict[str, torch.Tensor]  # the audio rows by stream: "ref", and "ctl" with the control
+    first: int  # the first row whose logits are read (the prompt's last)
+
+
 class Reference:
-    def __init__(self, cfg: Dict, device, control: bool = False):
-        self.s: Shapes = artifact.shapes(cfg)
+    def __init__(self, cfg: Dict, arch, device, control: bool = False):
+        self.arch = arch
+        self.s: Shapes = arch.shapes(cfg)
+        self.specs = artifact.specs(arch, self.s)
         self.seed = cfg["weights_seed"]
         self.device = torch.device(device)
         self.control = control
@@ -88,20 +102,18 @@ class Reference:
 
     # -- helpers -------------------------------------------------------------
 
-    def _w(self, names) -> Dict[str, torch.Tensor]:
-        return artifact.named(self.s, self.seed, self.device, names)
+    def weights(self, names) -> Dict[str, torch.Tensor]:
+        return artifact.named(self.s, self.specs, self.seed, self.device, names)
 
     def _streams(self, xs):
         """The pass's streams: the reference, and the control beside it."""
         return [("ref", xs)] + ([("ctl", [x.clone() for x in xs])] if self.control else [])
 
     @staticmethod
-    def _lin(x, w, b=None, low=False):
+    def linear(x, w, b=None, low=False):
+        """``x @ w.T + b``; ``low``: the control's float8 activation operand."""
         y = (fp8_rows(x) if low else x) @ w.t()
         return y + b if b is not None else y
-
-    def _rms(self, x, w):
-        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + self.s.rms_eps) * w
 
     def _ln(self, x, w, b):
         return F.layer_norm(x, (x.shape[-1],), w, b, self.s.ln_eps)
@@ -133,7 +145,8 @@ class Reference:
     def encode(self, mels: Sequence[torch.Tensor], n_audio: Sequence[int]):
         """Audio rows ``[n_audio, output_dim]`` of each request, per stream."""
         s = self.s
-        cw = self._w([f"aenc.conv{i}.{k}" for i in (1, 2, 3) for k in ("weight", "bias")] + ["aenc.conv_out.weight"])
+        cw = self.weights([f"aenc.conv{i}.{k}" for i in (1, 2, 3) for k in ("weight", "bias")]
+                          + ["aenc.conv_out.weight"])
         tpc = s.tokens_per_chunk
         pos = self._positions(tpc, s.a_d)
         xs = []
@@ -143,7 +156,7 @@ class Reference:
                 x = F.gelu(F.conv2d(x, cw[f"aenc.conv{i}.weight"], cw[f"aenc.conv{i}.bias"], stride=2, padding=1))
             c, ch, f, t = x.shape
             xs.append(x.permute(0, 3, 1, 2).reshape(c, t, ch * f))
-        streams = {name: [self._lin(x, cw["aenc.conv_out.weight"], low=name == "ctl") + pos for x in group]
+        streams = {name: [self.linear(x, cw["aenc.conv_out.weight"], low=name == "ctl") + pos for x in group]
                    for name, group in self._streams(xs)}
         cpw, hd = s.chunks_per_window, s.a_d // s.a_heads
         masks = []
@@ -157,65 +170,34 @@ class Reference:
                     masks.append((torch.arange(g * cpw * tpc, device=self.device) < n_audio[j]).reshape(g, -1))
         for i in range(s.a_layers):
             p = f"aenc.blk.{i}."
-            w = self._w([p + n + k for n in ("attn_norm", "ffn_norm") for k in (".weight", ".bias")]
-                        + [p + n + k for n in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_up", "ffn_down")
-                           for k in (".weight", ".bias")])
+            w = self.weights([p + n + k for n in ("attn_norm", "ffn_norm") for k in (".weight", ".bias")]
+                             + [p + n + k for n in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_up", "ffn_down")
+                                for k in (".weight", ".bias")])
             for name, group in streams.items():
                 low = name == "ctl"
                 for j, x in enumerate(group):
                     g, W, _ = x.shape
                     h = self._ln(x, w[p + "attn_norm.weight"], w[p + "attn_norm.bias"])
-                    q, k, v = (self._lin(h, w[p + n + ".weight"], w[p + n + ".bias"], low).reshape(g, W, s.a_heads, hd)
-                               for n in ("attn_q", "attn_k", "attn_v"))
+                    q, k, v = (self.linear(h, w[p + n + ".weight"], w[p + n + ".bias"], low)
+                               .reshape(g, W, s.a_heads, hd) for n in ("attn_q", "attn_k", "attn_v"))
                     logits = torch.einsum("gqhd,gkhd->ghqk", q, k) * hd ** -0.5
                     logits = logits.masked_fill(~masks[j][:, None, None, :], NEG)
                     a = torch.einsum("ghqk,gkhd->gqhd", torch.softmax(logits, -1), v).reshape(g, W, s.a_d)
-                    x = x + self._lin(a, w[p + "attn_output.weight"], w[p + "attn_output.bias"], low)
+                    x = x + self.linear(a, w[p + "attn_output.weight"], w[p + "attn_output.bias"], low)
                     h = self._ln(x, w[p + "ffn_norm.weight"], w[p + "ffn_norm.bias"])
-                    h = F.gelu(self._lin(h, w[p + "ffn_up.weight"], w[p + "ffn_up.bias"], low))
-                    group[j] = x + self._lin(h, w[p + "ffn_down.weight"], w[p + "ffn_down.bias"], low)
-        w = self._w([f"aenc.{n}.{k}" for n in ("ln_post", "proj1", "proj2") for k in ("weight", "bias")])
+                    h = F.gelu(self.linear(h, w[p + "ffn_up.weight"], w[p + "ffn_up.bias"], low))
+                    group[j] = x + self.linear(h, w[p + "ffn_down.weight"], w[p + "ffn_down.bias"], low)
+        w = self.weights([f"aenc.{n}.{k}" for n in ("ln_post", "proj1", "proj2") for k in ("weight", "bias")])
         out = {}
         for name, group in streams.items():
             low = name == "ctl"
             rows = []
             for j, x in enumerate(group):
                 x = self._ln(x.reshape(-1, s.a_d), w["aenc.ln_post.weight"], w["aenc.ln_post.bias"])
-                x = F.gelu(self._lin(x, w["aenc.proj1.weight"], w["aenc.proj1.bias"], low))
-                rows.append(self._lin(x, w["aenc.proj2.weight"], w["aenc.proj2.bias"], low)[: n_audio[j]])
+                x = F.gelu(self.linear(x, w["aenc.proj1.weight"], w["aenc.proj1.bias"], low))
+                rows.append(self.linear(x, w["aenc.proj2.weight"], w["aenc.proj2.bias"], low)[: n_audio[j]])
             out[name] = rows
         return out
-
-    # -- decoder -------------------------------------------------------------
-
-    def _rope(self, x, positions):
-        hd = x.shape[-1]
-        inv = 1.0 / (self.s.rope_theta ** (torch.arange(0, hd, 2, dtype=torch.float64, device=self.device) / hd))
-        ang = positions.double()[:, None] * inv[None, :]
-        cos, sin = torch.cos(ang).repeat(1, 2).float()[:, None], torch.sin(ang).repeat(1, 2).float()[:, None]
-        rot = torch.cat([-x[..., hd // 2:], x[..., : hd // 2]], dim=-1)
-        return x * cos + rot * sin
-
-    def _decoder_layer(self, i, w, x, low):
-        s = self.s
-        p = f"blk.{i}."
-        R = x.shape[0]
-        hd, G = s.head_dim, s.heads // s.kv_heads
-        h = self._rms(x, w[p + "attn_norm.weight"])
-        q = self._lin(h, w[p + "attn_q.weight"], low=low).reshape(R, s.heads, hd)
-        k = self._lin(h, w[p + "attn_k.weight"], low=low).reshape(R, s.kv_heads, hd)
-        v = self._lin(h, w[p + "attn_v.weight"], low=low).reshape(R, s.kv_heads, hd)
-        positions = torch.arange(R, device=self.device)
-        q = self._rope(self._rms(q, w[p + "attn_q_norm.weight"]), positions)
-        k = self._rope(self._rms(k, w[p + "attn_k_norm.weight"]), positions)
-        k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)  # head h reads KV head h // G
-        logits = torch.einsum("qhd,khd->hqk", q, k) * hd ** -0.5
-        causal = positions[None, :] <= positions[:, None]
-        a = torch.einsum("hqk,khd->qhd", torch.softmax(logits.masked_fill(~causal, NEG), -1), v)
-        x = x + self._lin(a.reshape(R, -1), w[p + "attn_output.weight"], low=low)
-        h = self._rms(x, w[p + "ffn_norm.weight"])
-        inner = F.silu(self._lin(h, w[p + "ffn_gate.weight"], low=low)) * self._lin(h, w[p + "ffn_up.weight"], low=low)
-        return x + self._lin(inner, w[p + "ffn_down.weight"], low=low)
 
     # -- the comparison ------------------------------------------------------
 
@@ -259,33 +241,14 @@ class Reference:
         ``(trimmed pcm, tokens)``, as ``{"ref": ..., "ctl": ...}`` a request,
         or what ``reduce(index, logits)`` makes of them, one request at a time."""
         s = self.s
-        live = [(None, pcm, list(tokens)) for pcm, tokens in requests]
+        live = [(pcm, list(tokens)) for pcm, tokens in requests]
         if not live:
             return []
-        n_audio = [audio_tokens(s, len(t)) for _i, t, _tok in live]
-        audio = self.encode([self.log_mel(t) for _i, t, _tok in live], n_audio)
-        emb = self._w(["token_embd.weight"])["token_embd.weight"]
-        hidden = {}
-        for name, rows in audio.items():
-            hidden[name] = []
-            for (_i, _t, tokens), n, a in zip(live, n_audio, rows):
-                ids = artifact.prompt_ids(s, n) + tokens[:-1]
-                x = emb[torch.as_tensor(ids, device=self.device)].clone()
-                x[artifact.PREFIX_LEN: artifact.PREFIX_LEN + n] = a
-                hidden[name].append(x)
-        for i in range(s.layers):
-            p = f"blk.{i}."
-            w = self._w([p + n + ".weight" for n in ("attn_norm", "attn_q", "attn_k", "attn_v", "attn_output",
-                                                      "attn_q_norm", "attn_k_norm", "ffn_norm", "ffn_gate",
-                                                      "ffn_up", "ffn_down")])
-            for name, group in hidden.items():
-                for j, x in enumerate(group):
-                    group[j] = self._decoder_layer(i, w, x, name == "ctl")
-        norm = self._w(["output_norm.weight"])["output_norm.weight"]
-        out = []
-        for j, n in enumerate(n_audio):
-            first = artifact.PREFIX_LEN + n + artifact.SUFFIX_LEN - 1
-            rows = {name: self._lin(self._rms(hidden[name][j][first:], norm), emb, low=name == "ctl")
-                    for name in hidden}
-            out.append(reduce(j, rows) if reduce is not None else rows)
-        return out
+        n_audio = [audio_tokens(s, len(t)) for t, _tok in live]
+        audio = self.encode([self.log_mel(t) for t, _tok in live], n_audio)
+        prompts = [Prompt(ids=artifact.prompt_ids(s, n) + tokens[:-1], audio_at=artifact.PREFIX_LEN,
+                          audio={name: rows[j] for name, rows in audio.items()},
+                          first=artifact.PREFIX_LEN + n + artifact.SUFFIX_LEN - 1)
+                   for j, ((_t, tokens), n) in enumerate(zip(live, n_audio))]
+        return [reduce(j, rows) if reduce is not None else rows
+                for j, rows in enumerate(self.arch.decoder_logits(self, prompts))]

@@ -34,7 +34,7 @@ import numpy as np
 from harness import artifact, measures, spec, traffic as traffic_mod
 from harness.client import ClosedLoop, PipeClient, Request
 
-FORBIDDEN = ("jax", "jaxlib", "light_whisper_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "light_whisper_tpu")
 SLICE_SECONDS = 1.0  # profiled at the window's start; every request sent in it is answered in it
 STREAM_PREFIX = "user-"
 WARM_PREFIX = "warm-"
@@ -181,7 +181,7 @@ def compare(cell: spec.Cell, traffic, requests: List[Request], seed: int, device
     silent = sum(1 for r in requests if r.reply and r.reply.get("success") and not r.reply.get("vad_segments", 0))
     sample = reference_sample(requests, traffic, int(cell.limits["reference_requests"]), seed)
     t = time.perf_counter()
-    ref = Reference(cell.config, device, control=control)
+    ref = Reference(cell.config, cell.arch, device, control=control)
     results = ref.run([{"pcm": traffic.utterances[r.utterance], "tokens": r.tokens} for r in sample])
     trim_mismatch = sum(1 for r, res in zip(sample, results)
                         if res["samples"] != measures.speech_samples(r) or res["segments"] != r.reply["vad_segments"])
@@ -274,7 +274,7 @@ def run(args, t_process: float) -> int:
 
     phases = {"imports": time.perf_counter() - t_process}
     t = time.perf_counter()
-    path = artifact.ensure(root, cell.config_name, cell.config, device)
+    path = artifact.ensure(root, cell, device)
     phases["artifact"] = time.perf_counter() - t
     t = time.perf_counter()
     traffic = traffic_mod.generate(cell.traffic, args.seed)
@@ -304,7 +304,7 @@ def run(args, t_process: float) -> int:
         torch.cuda.empty_cache()
     require_clean_imports()
 
-    record = measures.Record(cell=cell.name, shapes=artifact.shapes(cell.config),
+    record = measures.Record(cell=cell.name, shapes=cell.arch.shapes(cell.config), arch=cell.arch,
                              budget=int(cell.config["max_new_tokens"]), seconds=args.seconds, setup_s=setup_s,
                              requests=requests, t_open=start, stats_before=stats_before, stats_after=stats_after,
                              slice=traced.get("slice"), slice_span=traced.get("span", (0.0, 0.0)))

@@ -1,10 +1,12 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell ``<config>.<traffic>`` takes ``configs/<config>.json``,
-``traffic/<traffic>.json`` and ``limits/<config>.json``; a metric ``<name>``
-takes the reader ``metrics/<name>.py``, or ``metrics/<base>.py`` for a
-``<base>.<suffix>`` that has none of its own. Adding a cell, a mix, a
-configuration or a metric is adding files and entries: no file here changes.
+``traffic/<traffic>.json`` and ``limits/<config>.json``, and the module
+``archs/<arch>.py`` of the architecture that the configuration names under
+``"arch"``; a metric ``<name>`` takes the reader ``metrics/<name>.py``, or
+``metrics/<base>.py`` for a ``<base>.<suffix>`` that has none of its own.
+Adding a cell, a mix, a configuration, an architecture or a metric is adding
+files and entries: no file here changes.
 """
 
 from __future__ import annotations
@@ -13,9 +15,13 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+import sys
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # benchmark_torch/
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 @dataclasses.dataclass
@@ -38,6 +44,7 @@ class Cell:
     traffic_name: str
     chips: int
     config: Dict
+    arch: ModuleType  # archs/<arch>.py of the configuration
     traffic: Dict
     limits: Dict
     end_to_end: List[Metric]
@@ -69,13 +76,18 @@ def bench_dir(root: str) -> str:
 
 def find_cell(root: str, name: str) -> Cell:
     """The cell ``name`` of ``root/BENCHMARK.json`` with its files in the
-    checkout. Raises ``KeyError`` for a name the file does not hold."""
+    checkout. Raises ``KeyError`` for a name the file does not hold and for
+    a configuration that names no architecture, ``FileNotFoundError`` where
+    a file is missing."""
     bench = load_benchmark(root)
     here = bench_dir(root)
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     cfg_entry = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    config = _load_json(os.path.join(root, cfg_entry["file"]))
+    if "arch" not in config:
+        raise KeyError(f"configuration {entry['config']!r} names no architecture (\"arch\")")
     e2e = _metrics(bench["end_to_end"], name)
     per_layer = _metrics(bench["per_layer"], name)
     return Cell(
@@ -83,12 +95,32 @@ def find_cell(root: str, name: str) -> Cell:
         config_name=entry["config"],
         traffic_name=entry["traffic"],
         chips=int(entry["chips"]),
-        config=_load_json(os.path.join(root, cfg_entry["file"])),
+        config=config,
+        arch=arch(config["arch"], root),
         traffic=_load_json(os.path.join(here, "traffic", f"{entry['traffic']}.json")),
         limits=_load_json(os.path.join(here, "limits", f"{entry['config']}.json")),
         end_to_end=e2e,
         per_layer=per_layer,
     )
+
+
+def _load(path: str, module_name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = module  # as an import would: dataclasses look their module up there
+    spec.loader.exec_module(module)
+    return module
+
+
+def arch(name: str, root: str = os.path.dirname(HERE)) -> ModuleType:
+    """The architecture module ``archs/<name>.py``. Raises ``KeyError`` for
+    a name that is not one, ``FileNotFoundError`` where no such file is."""
+    if not isinstance(name, str) or not NAME.fullmatch(name):
+        raise KeyError(f"{name!r} is not an architecture's name")
+    path = os.path.join(bench_dir(root), "archs", f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no architecture module archs/{name}.py")
+    return _load(path, f"benchmark_arch_{name.replace('-', '_').replace('.', '_')}")
 
 
 def reader(name: str, root: str = os.path.dirname(HERE)) -> Callable:
@@ -100,7 +132,4 @@ def reader(name: str, root: str = os.path.dirname(HERE)) -> Callable:
     path = os.path.join(folder, f"{name}.py")
     if not os.path.exists(path):
         path = os.path.join(folder, f"{name.split('.')[0]}.py")
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name.replace('.', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(path, f"benchmark_metric_{name.replace('.', '_')}").read

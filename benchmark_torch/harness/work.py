@@ -1,5 +1,7 @@
 """The work a request needs, from the configuration's shapes alone, and the
-card's peaks to hold it against.
+card's peaks to hold it against: what every architecture shares (the audio
+tower, the prompt). An architecture's module (``archs/<arch>.py``) counts
+its decoder's FLOPs, the bytes its decode kernels read and their launches.
 
 Peaks: one H100 SXM, NVIDIA's data sheet, dense, at its 700 W limit (the run
 prints the card's own limit beside every share): 989 TFLOP/s bf16 on the
@@ -9,8 +11,6 @@ needs (its true audio, prompt and steps; no padding).
 """
 
 from __future__ import annotations
-
-from typing import Tuple
 
 from harness.artifact import PREFIX_LEN, SUFFIX_LEN, Shapes, conv_out_len
 
@@ -32,11 +32,6 @@ def prompt_len(s: Shapes, samples: int) -> int:
 # -- FLOPs -------------------------------------------------------------------
 
 
-def _decoder_row_flops(s: Shapes) -> int:
-    q = s.heads * s.head_dim
-    return 2 * s.layers * (s.d * s.qkv_dim + q * s.d + s.d * 2 * s.ffn + s.ffn * s.d)
-
-
 def encoder_flops(s: Shapes, samples: int) -> int:
     frames = samples // HOP
     chunks = -(-frames // s.chunk_frames)
@@ -55,49 +50,14 @@ def encoder_flops(s: Shapes, samples: int) -> int:
             + 2 * n * (s.a_d * s.a_d + s.a_d * s.a_out))
 
 
-def request_flops(s: Shapes, samples: int, tokens: int) -> int:
-    """Encoder, prefill and ``tokens - 1`` decode steps (the last token is
-    never fed back), each row with its causal attention, plus the logits
-    head once a token."""
-    p = prompt_len(s, samples)
-    att = 4 * s.layers * s.heads * s.head_dim
-    rows = p + max(0, tokens - 1)
-    keys = rows * (rows + 1) // 2  # row t sees t + 1 keys
-    head = 2 * s.d * s.vocab * tokens
-    return encoder_flops(s, samples) + rows * _decoder_row_flops(s) + att * keys + head
+# -- launches and bytes ---------------------------------------------------------
 
 
-# -- bytes of the decode kernels ----------------------------------------------
+def encoder_launches(s: Shapes) -> int:
+    """Q8 launches of the tower a prefill: conv_out, six linears a layer, proj1, proj2."""
+    return 3 + 6 * s.a_layers
 
 
-def _q8_bytes(n: int, k: int) -> int:
-    return n * k + n * (k // 32) * 2  # int8 quants, 2-byte scales
-
-
-def gemv_step_bytes(s: Shapes) -> Tuple[int, int]:
-    """(weight bytes, bytes a row) of one decode forward's Q8 GEMVs: per
-    layer qkv, o, gate-up and down, then the logits head. A row reads its
-    input in bf16 once a projection and writes its float32 output."""
-    q = s.heads * s.head_dim
-    mats = [(s.qkv_dim, s.d), (s.d, q), (2 * s.ffn, s.d), (s.d, s.ffn)]
-    weights = s.layers * sum(_q8_bytes(n, k) for n, k in mats) + _q8_bytes(s.vocab, s.d)
-    per_row = s.layers * sum(2 * k + 4 * n for n, k in mats) + 2 * s.d + 4 * s.vocab
-    return weights, per_row
-
-
-def head_bytes(s: Shapes) -> Tuple[int, int]:
-    """(weight bytes, bytes a row) of the logits head alone."""
-    return _q8_bytes(s.vocab, s.d), 2 * s.d + 4 * s.vocab
-
-
-def decode_attention_bytes(s: Shapes, prompt: int, steps: int) -> int:
-    """K and V (bf16) that ``steps`` decode steps read after a prompt of
-    ``prompt`` rows: step j attends prompt + j + 1 positions in every layer."""
-    positions = steps * (prompt + 1) + steps * (steps - 1) // 2
-    return 2 * s.layers * s.kv_heads * s.head_dim * 2 * positions
-
-
-def gemv_launches(s: Shapes, forwards: int, prefills: int) -> int:
-    """Q8 launches at T <= 8 rows: four a layer and the head each decode
-    forward, and the head once a prefill (its first token)."""
-    return forwards * (4 * s.layers + 1) + prefills
+def q8_bytes(n: int, k: int) -> int:
+    """Bytes of an [n, k] Q8_0 matrix: int8 quants, a 2-byte scale a block of 32."""
+    return n * k + n * (k // 32) * 2

@@ -18,6 +18,10 @@ REPO = os.path.dirname(BENCH)
 sys.path.insert(0, BENCH)
 sys.path.insert(0, REPO)
 
+from harness import spec  # noqa: E402
+
+QWEN3_ASR = spec.arch("qwen3-asr", REPO)
+
 TINY = {
     "vocab_size": 512, "hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
     "num_key_value_heads": 2, "head_dim": 16, "intermediate_size": 128, "audio_token_id": 511,
@@ -25,7 +29,9 @@ TINY = {
 }
 TINY_AUDIO = {"d_model": 64, "encoder_layers": 2, "encoder_attention_heads": 2, "encoder_ffn_dim": 128,
               "downsample_hidden_size": 32, "output_dim": 64}
-TINY_LIMITS = {"reference_requests": 24, "mean_logit_gap": 0.0005}
+# mean_logit_gap: between the program's largest reading (3.5e-5) and the control's smallest (1.7e-4) over a
+# dozen seeds of 3 s rehearsals (calibrate.py --rehearse) of tiny.dictation and tiny.streams8
+TINY_LIMITS = {"reference_requests": 24, "mean_logit_gap": 0.00012}
 
 
 def tiny_config() -> dict:

@@ -61,6 +61,10 @@ def test_a_run_refuses_jax_in_its_process(monkeypatch):
     with pytest.raises(runner.RunError):
         runner.require_clean_imports()
     monkeypatch.delitem(sys.modules, "jax")
+    monkeypatch.setitem(sys.modules, "flax", types.ModuleType("flax"))
+    with pytest.raises(runner.RunError):
+        runner.require_clean_imports()
+    monkeypatch.delitem(sys.modules, "flax")
     monkeypatch.setitem(sys.modules, "light_whisper_tpu.models", types.ModuleType("light_whisper_tpu.models"))
     with pytest.raises(runner.RunError):
         runner.require_clean_imports()

@@ -29,18 +29,19 @@ def break_b1(monkeypatch, fault, seen):
             return out
 
         monkeypatch.setattr(dec, "decode_greedy", altered)
-    else:
-        forward = dec.forward
+    else:  # the B=1 decode steps the batched forward on a 1-stream view of the session's cache
+        forward = dec.forward_decode_batch
 
-        def frozen(cfg, params, embeds, cache, *args, **kwargs):
-            pos = cache.pos
-            out = forward(cfg, params, embeds, cache, *args, **kwargs)
-            if embeds.shape[0] == 1:  # a decode step leaves its cache as it found it
+        def frozen(cfg, params, x, cache, *args, **kwargs):
+            pos, host = cache.pos.clone(), list(cache.pos_host)
+            out = forward(cfg, params, x, cache, *args, **kwargs)
+            if x.shape[0] == 1:  # a decode step leaves its cache as it found it
                 seen.append(1)
-                cache.pos = pos
+                cache.pos.copy_(pos)
+                cache.pos_host = host
             return out
 
-        monkeypatch.setattr(dec, "forward", frozen)
+        monkeypatch.setattr(dec, "forward_decode_batch", frozen)
 
 
 def break_batched(monkeypatch, fault, seen):

@@ -5,12 +5,12 @@ import math
 
 import pytest
 
-from harness import artifact, measures, trace
+from harness import measures, trace
 from harness.client import Request
 
-from conftest import tiny_config
+from conftest import QWEN3_ASR, tiny_config
 
-S = artifact.shapes(tiny_config())
+S = QWEN3_ASR.shapes(tiny_config())
 
 
 def req(t_sent, t_reply, ok=True, duration=2.0, client=0):
@@ -22,7 +22,7 @@ def req(t_sent, t_reply, ok=True, duration=2.0, client=0):
 
 
 def record(requests, seconds=10.0, **kw):
-    return measures.Record(cell="tiny.dictation", shapes=S, budget=4, seconds=seconds, setup_s=1.0,
+    return measures.Record(cell="tiny.dictation", shapes=S, arch=QWEN3_ASR, budget=4, seconds=seconds, setup_s=1.0,
                            requests=requests, t_open=0.0, stats_before=kw.get("before", {}),
                            stats_after=kw.get("after", {}), slice=kw.get("slice"))
 

@@ -8,7 +8,7 @@ import torch
 from harness import artifact, traffic
 from harness.reference import Reference
 
-from conftest import tiny_config
+from conftest import QWEN3_ASR, tiny_config
 
 MIX = {"loop": "closed", "clips": 3,
        "speech_seconds": {"distribution": "lognormal", "median": 4.0, "sigma": 0.6, "min": 2.0, "max": 20.0},
@@ -19,7 +19,7 @@ MIX = {"loop": "closed", "clips": 3,
 def tiny(tmp_path_factory):
     cfg = tiny_config()
     path = str(tmp_path_factory.mktemp("art") / "tiny.gguf")
-    artifact.write(path, artifact.shapes(cfg), cfg["weights_seed"], "cpu")
+    artifact.write(path, QWEN3_ASR, QWEN3_ASR.shapes(cfg), cfg["weights_seed"], "cpu")
     return cfg, path, traffic.generate(MIX, 21)
 
 
@@ -27,7 +27,7 @@ def test_trim_matches_the_engine_vad(tiny):
     from light_whisper_tpu_torch.models.vad.api import FireRedVad
 
     cfg, _path, t = tiny
-    vad, ref = FireRedVad(device="cpu"), Reference(cfg, "cpu")
+    vad, ref = FireRedVad(device="cpu"), Reference(cfg, QWEN3_ASR, "cpu")
     for pcm in t.utterances:
         segs = vad.speech_timestamps(pcm.astype(np.float32) / 32768.0)
         trimmed, n = ref.vad.trim(pcm)
@@ -40,8 +40,8 @@ def test_logits_match_the_precise_model(tiny):
 
     cfg, path, t = tiny
     model = Qwen3ASRModel(path, device="cpu", max_new_tokens=6, precise=True)
-    ref = Reference(cfg, "cpu")
-    s = artifact.shapes(cfg)
+    ref = Reference(cfg, QWEN3_ASR, "cpu")
+    s = QWEN3_ASR.shapes(cfg)
     for pcm in t.utterances:
         trimmed, _n = ref.vad.trim(pcm)
         tokens = model.transcribe(trimmed).tokens

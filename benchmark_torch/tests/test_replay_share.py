@@ -7,11 +7,11 @@ import os
 
 import pytest
 
-from harness import artifact, measures, spec
+from harness import measures, spec
 
-from conftest import REPO, tiny_config
+from conftest import QWEN3_ASR, REPO, tiny_config
 
-S = artifact.shapes(tiny_config())
+S = QWEN3_ASR.shapes(tiny_config())
 NAMES = ("decode_replay_share.latency", "decode_replay_share.throughput")
 
 
@@ -20,8 +20,8 @@ def spans(**named):
 
 
 def record(before, after):
-    return measures.Record(cell="tiny.dictation", shapes=S, budget=4, seconds=10.0, setup_s=1.0, requests=[],
-                           t_open=0.0, stats_before=before, stats_after=after)
+    return measures.Record(cell="tiny.dictation", shapes=S, arch=QWEN3_ASR, budget=4, seconds=10.0, setup_s=1.0,
+                           requests=[], t_open=0.0, stats_before=before, stats_after=after)
 
 
 BEFORE = {"spans": spans(model__decode__step=(39, 900.0), model__decode__capture=(1, 30.0),

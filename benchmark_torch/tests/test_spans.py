@@ -7,11 +7,11 @@ import os
 
 import pytest
 
-from harness import artifact, measures, spec
+from harness import measures, spec
 
-from conftest import REPO, tiny_config
+from conftest import QWEN3_ASR, REPO, tiny_config
 
-S = artifact.shapes(tiny_config())
+S = QWEN3_ASR.shapes(tiny_config())
 NEW = ("queue_ms.throughput", "decode_step_ms.throughput", "decode_host_ms.latency", "decode_host_ms.throughput",
        "encoder_ms.latency", "decoder_prefill_ms.latency", "wire_server_ms.throughput")
 
@@ -21,8 +21,8 @@ def spans(**named):
 
 
 def record(before, after):
-    return measures.Record(cell="tiny.streams8", shapes=S, budget=4, seconds=10.0, setup_s=1.0, requests=[],
-                           t_open=0.0, stats_before=before, stats_after=after)
+    return measures.Record(cell="tiny.streams8", shapes=S, arch=QWEN3_ASR, budget=4, seconds=10.0, setup_s=1.0,
+                           requests=[], t_open=0.0, stats_before=before, stats_after=after)
 
 
 BEFORE = {"spans": spans(scheduler__queue=(4, 400.0), model__decode__step=(10, 250.0),
